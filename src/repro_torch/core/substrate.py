@@ -18,8 +18,12 @@ order and zero-row padding, and a :class:`Calibration` round-trips through
 JSON in the JAX reference's format.  In PyTorch there is nothing to trace:
 the recorder reads concrete values, and a calibration swap in the engine is a
 plain attribute update between decode chunks.  Shadow recording (online drift
-monitoring), ``substrate_for_design`` and ``substrate_ladder`` wait for the
-port of ``core.design``.
+monitoring) waits for the port of ``runtime.drift``.
+
+:func:`substrate_for_design` turns a ``core.design`` design point into the
+substrate that executes it (QS points run bit-serial planes, QR and CM
+points the folded-noise analytic model), and :func:`substrate_ladder` steps
+down the EDAP frontier from one for load-adaptive degradation.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.core.design import DesignPoint
 from repro_torch.core.imc_linear import IMCConfig
 
 # stats are max-merged, so every field must be monotone under "observe more"
@@ -153,7 +158,7 @@ class SiteOverride:
     replacements (a sorted tuple) and/or a different billed design point."""
 
     imc_fields: Tuple[Tuple[str, Any], ...] = ()
-    design: Optional[Any] = None
+    design: Optional[DesignPoint] = None
 
 
 def _normalize_overrides(overrides) -> Tuple[Tuple[str, SiteOverride], ...]:
@@ -165,6 +170,9 @@ def _normalize_overrides(overrides) -> Tuple[Tuple[str, SiteOverride], ...]:
     for key, val in overrides.items():
         if isinstance(val, SiteOverride):
             out.append((key, val))
+            continue
+        if isinstance(val, DesignPoint):
+            out.append((key, SiteOverride(design=val)))
             continue
         fields = dict(val)
         design = fields.pop("design", None)
@@ -185,7 +193,7 @@ class Substrate:
     imc: IMCConfig = IMCConfig()
     policy: str = "dynamic"  # "dynamic" | "frozen"
     calibration: Optional[Calibration] = None
-    design: Optional[Any] = None  # a core.design.DesignPoint (not ported yet)
+    design: Optional[DesignPoint] = None
     overrides: Tuple[Tuple[str, SiteOverride], ...] = ()
 
     def __post_init__(self):
@@ -237,9 +245,25 @@ class Substrate:
                 f"{site!r} and no {DEFAULT_SITE!r} fallback")
         return stats
 
+    def design_for_site(self, site: Optional[str] = None
+                        ) -> Optional[DesignPoint]:
+        """The design point billed for work at ``site`` (a site override
+        wins over the substrate-wide design point)."""
+        ov = self._override_for(site)
+        if ov is not None and ov.design is not None:
+            return ov.design
+        return self.design
+
     def frozen(self, calibration: Calibration) -> "Substrate":
         return dataclasses.replace(self, policy="frozen",
                                    calibration=calibration)
+
+    def with_design(self, design: DesignPoint) -> "Substrate":
+        return dataclasses.replace(self, design=design)
+
+    def with_overrides(self, overrides) -> "Substrate":
+        return dataclasses.replace(self,
+                                   overrides=_normalize_overrides(overrides))
 
     def dynamic(self) -> "Substrate":
         return dataclasses.replace(self, policy="dynamic", calibration=None)
@@ -263,7 +287,8 @@ class _ModalSubstrate(Substrate):
     def __init__(self, *, imc: Optional[IMCConfig] = None,
                  policy: str = "dynamic",
                  calibration: Optional[Calibration] = None,
-                 design=None, overrides=(), **knobs):
+                 design: Optional[DesignPoint] = None, overrides=(),
+                 **knobs):
         if imc is None:
             imc = IMCConfig(mode=self.MODE, **knobs)
         else:
@@ -314,6 +339,31 @@ def as_substrate(obj: Union[None, Substrate, IMCConfig]) -> Substrate:
         cls = _BY_MODE.get(obj.mode)
         return Substrate(imc=obj) if cls is None else cls(imc=obj)
     raise TypeError(f"cannot interpret {type(obj).__name__} as a Substrate")
+
+
+def substrate_for_design(pt: DesignPoint, **kw) -> Substrate:
+    """The substrate a ``core.design`` design point implies: QS points run
+    bit-serial planes (:class:`BitSerialIMC`); QR and CM points convert a full
+    dot product per ADC read, which :class:`AnalyticIMC` models.  The design
+    point rides along for billing (``launch.metering``)."""
+    if pt.arch_kind == "qs":
+        return BitSerialIMC(bx=pt.bx, bw=pt.bw, b_adc=pt.b_adc,
+                            rows=pt.n_bank, v_wl=pt.knob, design=pt, **kw)
+    return AnalyticIMC(bx=pt.bx, bw=pt.bw, b_adc=pt.b_adc,
+                       snr_a_db=pt.snr_a_db, design=pt, **kw)
+
+
+def substrate_ladder(pt: DesignPoint, steps: int = 2, min_b_adc: int = 2,
+                     **kw) -> List[Substrate]:
+    """Substrates stepping DOWN the EDAP frontier from ``pt``
+    (``core.design.frontier_ladder``): index 0 is ``pt`` itself, each later
+    entry drops one bit of output-ADC precision (lower SNR_T, energy and
+    delay per DP).  ``launch.scheduler.PressureController`` walks it under
+    overload."""
+    from repro_torch.core.design import frontier_ladder
+
+    return [substrate_for_design(p, **kw)
+            for p in frontier_ladder(pt, steps=steps, min_b_adc=min_b_adc)]
 
 
 def calibrate_model(cfg, params, token_batches):

@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("paged_attention", "bitserial")
+SOURCES = ("paged_attention", "bitserial", "analytic")
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
 _SIGNATURES = {
@@ -30,6 +30,8 @@ _SIGNATURES = {
                         [_P] * 10 + [_I] * 7 + [_F, _F, _I, _P]),
     "bitserial": ("imc_bitserial_matmul",
                   [_P] * 4 + [_I] * 7 + [_F, _I, _F, _F, _I, _U, _F, _P]),
+    "analytic": ("imc_analytic_matmul",
+                 [_P] * 3 + [_I] * 4 + [_U, _F, _I, _F, _F, _F, _P]),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

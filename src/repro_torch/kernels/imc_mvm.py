@@ -1,4 +1,5 @@
-"""The bit-serial QS-Arch IMC matmul (paper SSIV-B2).
+"""The IMC matmul kernels: bit-serial QS-Arch (paper SSIV-B2) and the
+analytic folded-noise model.
 
 ``imc_bitserial_matmul`` dispatches on the device of its operands: CPU
 tensors take the plain version ``ref.imc_bitserial_ref``; CUDA tensors launch
@@ -10,7 +11,12 @@ so it matches the plain version draw for draw.
 
 ``pack_weight_planes`` (the TPU kernel's host-side (K, Bw, M) plane packer)
 is kept for the plain path and for tests; the CUDA kernel does not use it.
-The analytic-mode kernel (``_analytic_kernel``) is not ported yet.
+
+``imc_analytic_matmul`` dispatches the same way: CPU tensors take
+``ref.imc_analytic_ref``; CUDA tensors launch ``csrc/analytic.cu`` (it
+replaces ``repro/kernels/imc_mvm.py::_analytic_kernel``) or raise.  Its noise
+is the counter-hash normal at global ``(b, m)`` sites, as in the plain
+version.
 """
 from __future__ import annotations
 
@@ -20,7 +26,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.ref import BitSerialSpec, unpack_plane
+from repro_torch.kernels.ref import AnalyticSpec, BitSerialSpec, unpack_plane
 
 
 def pack_weight_planes(w_codes, w_gain, bw: int):
@@ -104,3 +110,52 @@ def imc_bitserial_matmul(x_codes, w_codes, w_gain, spec: BitSerialSpec,
     if x_codes.device.type != "cuda":
         raise ValueError(f"no bit-serial kernel for device {x_codes.device}")
     return bitserial_cuda(x_codes, w_codes, w_gain, spec, seed=seed)
+
+
+def analytic_cuda(x, w_codes, spec: AnalyticSpec, seed: Optional[int] = None):
+    """Launch the CUDA analytic kernel; returns (B, M) f32 in the units of
+    ``x @ w_codes`` (sigma_yo units when ``x`` is codes / sigma_yo)."""
+    dev = x.device
+    if dev.type != "cuda" or w_codes.device != dev:
+        raise ValueError("analytic_cuda needs both operands on one CUDA "
+                         f"device, got {x.device} and {w_codes.device}")
+    if x.dim() != 2 or w_codes.dim() != 2:
+        raise ValueError("analytic_cuda takes 2-D (B, K) and (K, M) operands")
+    b_sz, k = x.shape
+    k2, m = w_codes.shape
+    if k != k2:
+        raise ValueError(f"inner dimensions differ: {k} vs {k2}")
+    xf = x.to(torch.float32).contiguous()
+    wf = w_codes.to(torch.float32).contiguous()
+    has_noise = seed is not None and spec.sigma_out > 0.0
+    half = 2.0 ** (spec.b_adc - 1)
+    out = torch.empty((b_sz, m), dtype=torch.float32, device=dev)
+    lib = build.library("analytic")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.imc_analytic_matmul(
+        xf.data_ptr(), wf.data_ptr(), out.data_ptr(), b_sz, k, m,
+        int(has_noise), ctypes.c_uint32(int(seed or 0) & 0xFFFFFFFF),
+        ctypes.c_float(spec.sigma_out), int(spec.apply_adc),
+        ctypes.c_float(2.0 * spec.y_clip / 2.0**spec.b_adc),
+        ctypes.c_float(-half), ctypes.c_float(half - 1), stream)
+    if err != 0:
+        raise RuntimeError("analytic kernel launch failed: "
+                           f"{build.error_string('analytic', err)}")
+    analytic_cuda.launches += 1
+    return out
+
+
+analytic_cuda.launches = 0
+
+
+def imc_analytic_matmul(x, w_codes, spec: AnalyticSpec,
+                        seed: Optional[int] = None):
+    """Analytic-mode IMC matmul ``ADC_MPC(x @ w_codes + sigma_out * z)``;
+    returns (B, M) f32.  ``seed`` (an int) enables the folded output noise;
+    ``seed=None`` or ``spec.sigma_out == 0`` disables it.  CPU tensors take
+    the plain version, CUDA tensors the kernel."""
+    if x.device.type == "cpu":
+        return ref.imc_analytic_ref(x, w_codes, spec, seed=seed)
+    if x.device.type != "cuda":
+        raise ValueError(f"no analytic kernel for device {x.device}")
+    return analytic_cuda(x, w_codes, spec, seed=seed)

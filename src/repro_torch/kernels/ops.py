@@ -1,18 +1,18 @@
 """IMC-simulated matmuls on real-valued operands.
 
 ``imc_matmul`` quantizes activations and weights (paper SSII), derives the
-per-plane noise constants from the core analytics, and runs the integer-code
-matmul.  Noise is driven by an explicit integer ``seed``: the JAX reference
-derives its kernel seed from a PRNG key (``_seed_from_key``), which PyTorch
-cannot replay, so callers hand seeds down directly.
+noise constants from the core analytics, and runs the integer-code matmul:
+the bit-serial kernel (``imc_bitserial``), the analytic folded-noise kernel
+(``imc_analytic``) or a plain code product (``fakequant``).  On the card the
+two IMC modes always launch their CUDA kernels; on the CPU their plain
+versions run.  (The JAX serve path reaches the plain oracles only because
+interpret-mode Pallas is slow off the TPU; the math is the same.)
 
-On the card the bit-serial mode always launches the CUDA kernel.  The JAX
-serve path reaches the plain oracle instead only because interpret-mode
-Pallas is slow off the TPU (its ``IMCConfig.use_kernel`` defaults to False);
-the math is the same.  On the CPU the plain version
-runs.  The analytic mode's kernel is not ported yet (ROADMAP queue 2), so
-``imc_matmul(mode="imc_analytic")`` raises; ``core.imc_linear.linear`` runs
-the analytic substrate as plain tensor code, as the reference does.
+Noise is driven by an explicit integer ``seed``: the JAX reference derives
+its kernel seed from a PRNG key (``_seed_from_key``), which PyTorch cannot
+replay, so callers hand seeds down directly.  ``core.imc_linear.linear``
+runs the analytic substrate as plain tensor code, as the reference does; only
+this module's ``imc_analytic`` mode reaches the analytic kernel.
 """
 from __future__ import annotations
 
@@ -22,7 +22,12 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import imc_mvm, prng
-from repro_torch.kernels.ref import BitSerialSpec, quantize_codes
+from repro_torch.kernels.ref import (
+    AnalyticSpec,
+    BitSerialSpec,
+    quantize_codes,
+    true_div,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +46,26 @@ class IMCMatmulConfig:
     v_c_counts: float = 1e9  # per-plane ADC range in counts (bitserial)
     snr_a_db: Optional[float] = None  # analytic mode: folded analog SNR
     y_clip_sigmas: float = 4.0  # MPC clip ratio (analytic mode)
+
+
+def derive_config_from_arch(arch, x_signed: bool = True) -> IMCMatmulConfig:
+    """An :class:`IMCMatmulConfig` from a core ``QSArch`` analytic design
+    point: its bank, bit widths, minimum ADC precision, noise constants in
+    counts and its analog SNR (for the analytic mode)."""
+    qs = arch.qs
+    return IMCMatmulConfig(
+        mode="imc_bitserial",
+        bx=arch.bx,
+        bw=arch.bw,
+        b_adc=arch.b_adc_min(),
+        rows=arch.n,
+        x_signed=x_signed,
+        sigma_d=float(qs.sigma_d),
+        sigma_thermal_counts=float(qs.sigma_theta_volts(arch.n) / qs.dv_unit),
+        k_h_counts=float(arch.k_h),
+        v_c_counts=float(arch.v_c_counts()),
+        snr_a_db=float(arch.snr_a_db()),
+    )
 
 
 def matmul_config_from_imc(cfg, n: int) -> IMCMatmulConfig:
@@ -77,7 +102,12 @@ def imc_matmul(x, w, cfg: IMCMatmulConfig, seed: Optional[int] = None,
     ``seed=None`` disables analog noise (quantization, clipping and the ADC
     still apply).  In the bit-serial mode ``seed`` derives two child seeds:
     one draws the (K, M) per-cell mismatch gain, the other keys the kernel's
-    per-plane thermal noise.
+    per-plane thermal noise.  In the analytic mode ``seed`` itself keys the
+    kernel's folded output noise (the reference derives it from a key).
+
+    ``sigma_yo`` (analytic mode) is the output std in CODE units that scales
+    the folded noise and the MPC clip; it defaults to the std of the first
+    <= 8 rows' ideal code product, a per-batch statistic.
     """
     if x_max is None:
         x_max = _dynamic_max(x)
@@ -90,11 +120,23 @@ def imc_matmul(x, w, cfg: IMCMatmulConfig, seed: Optional[int] = None,
         return (xc.to(torch.float32) @ wc.to(torch.float32)) * (dx * dw)
 
     if cfg.mode == "imc_analytic":
-        raise NotImplementedError(
-            "imc_matmul(mode='imc_analytic') needs the analytic-mode kernel, "
-            "which is not ported yet (ROADMAP queue 2); "
-            "core.imc_linear.linear runs the analytic substrate as plain "
-            "tensor code")
+        xc, wc = xc.to(torch.float32), wc.to(torch.float32)
+        if sigma_yo is None:
+            # a per-batch statistic: the std of the first <= 8 rows' ideal
+            # code product
+            sigma_yo = (xc[: min(xc.shape[0], 8)] @ wc).detach().std(
+                unbiased=False) + 1e-9
+        # folded analog noise: SNR_a = sigma_yo^2 / sigma_a^2
+        sigma_out = (10.0 ** (-cfg.snr_a_db / 20.0)
+                     if cfg.snr_a_db is not None else 0.0)
+        # sigma_out and y_clip are in sigma_yo units: the operands are
+        # scaled by 1/sigma_yo so the constants apply exactly
+        spec = AnalyticSpec(b_adc=cfg.b_adc, sigma_out=sigma_out,
+                            y_clip=cfg.y_clip_sigmas, apply_adc=True)
+        noise_seed = seed if sigma_out > 0.0 else None
+        y = imc_mvm.imc_analytic_matmul(true_div(xc, sigma_yo), wc, spec,
+                                        seed=noise_seed)
+        return y * sigma_yo * (dx * dw)
 
     if cfg.mode == "imc_bitserial":
         spec = BitSerialSpec(

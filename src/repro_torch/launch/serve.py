@@ -31,11 +31,23 @@ Engine design (the PyTorch counterpart of ``repro.launch.serve.Engine``):
                        active request overruns.  (The reference fuses the
                        chunk with ``lax.scan``; a CUDA graph of the chunk is
                        later work.)
+  metering             an optional ``launch.metering.DPMeter`` counts the
+                       billed dot-product work of each prefill group and
+                       decode chunk (host-side integers);
+                       ``--energy-report`` bills it at the min-energy
+                       QS/QR/CM design points.
+  SLO serving          ``serve_slo`` releases seeded requests at their
+                       virtual arrival times (``runtime.workload``), orders
+                       and sheds the queue under a ``launch.scheduler``
+                       policy, and may walk the EDAP frontier under load
+                       (``PressureController`` -> ``swap_substrate``).  Time
+                       is a ``VirtualClock`` in decode-step units, so every
+                       SLO metric is a deterministic function of the seed.
 
 Greedy sampling.  Noise seeds are integers (``rng``); with a frozen
 calibration and ``rng=None`` the batched engine equals sequential execution.
-Metering, prefix caching, drift monitoring, fault retry, SLO workloads and
-tensor-parallel meshes are not ported yet: their flags raise.
+Prefix caching, drift monitoring, fault retry and tensor-parallel meshes are
+not ported yet: their flags raise.
 """
 from __future__ import annotations
 
@@ -75,14 +87,27 @@ class Request:
     t_submit: Optional[float] = None
     t_first: Optional[float] = None  # first generated token on the host
     error: Optional[str] = None
-    error_kind: Optional[str] = None  # "admission"
+    error_kind: Optional[str] = None  # "admission" | "shed"
+    # SLO workload metadata (runtime.workload): virtual arrival time,
+    # per-class deadlines (relative to arrival / between tokens), class
+    arrive_at: Optional[float] = None
+    ttft_deadline: Optional[float] = None
+    itl_deadline: Optional[float] = None
+    rclass: str = "default"
     # true generation length (an EOS the engine cannot know at admission)
     stop_at: Optional[int] = None
     preemptions: int = 0
+    # virtual completion time of each generated token (stamped only when the
+    # engine runs under a VirtualClock)
+    token_times: List[float] = dataclasses.field(default_factory=list)
 
     @property
     def ok(self) -> bool:
         return self.done and self.error is None
+
+    @property
+    def shed(self) -> bool:
+        return self.error_kind == "shed"
 
     @property
     def effective_max(self) -> int:
@@ -216,14 +241,17 @@ class Engine:
 
     Host-side state is bookkeeping (which request owns which slot and which
     physical blocks); the pools, block tables, per-slot positions and last
-    tokens live on the device of ``params``.
+    tokens live on the device of ``params``.  ``meter`` (a
+    ``launch.metering.DPMeter``) counts billed work; ``clock`` (a
+    ``runtime.workload.VirtualClock``) makes admission and decode advance
+    virtual time and stamp it on requests instead of the host clock.
     """
 
     def __init__(self, cfg, params, batch_slots: int, cache_len: int,
                  rng: Optional[int] = None, max_chunk: int = 8,
                  block_size: int = DEFAULT_BLOCK,
-                 kv_blocks: Optional[int] = None,
-                 alloc_policy: str = "lazy"):
+                 kv_blocks: Optional[int] = None, meter=None,
+                 alloc_policy: str = "lazy", clock=None):
         if any(k != "attn" for k in tuple(cfg.pattern) + tuple(cfg.tail_kinds)):
             raise NotImplementedError(
                 f"pattern {cfg.pattern} is not ported yet (ROADMAP)")
@@ -234,6 +262,13 @@ class Engine:
         self.device = params["embed"].device
         self.substrate = substrate_lib.as_substrate(cfg.imc)
         self.swap_count = 0
+        # the meter bills the substrate that actually runs
+        self.meter = meter
+        if meter is not None and getattr(meter, "substrate", None) is None:
+            meter.substrate = self.substrate
+        self.clock = clock
+        # the SLO serve loop publishes its queue length here each tick
+        self.queue_depth = 0
         self.batch_slots = batch_slots
         self.block = block_size
         self.max_blocks = -(-cache_len // block_size)
@@ -270,12 +305,32 @@ class Engine:
         self.prefill_calls = 0
         self.prefill_rows = 0
         self.failed_requests = 0
+        self.shed_requests = 0
         self.preempt_count = 0
+        self.substrate_swaps = 0
+        # pool-utilization accounting, sampled once per decode chunk
+        self._util_token_sum = 0
+        self._util_cap_sum = 0
 
     # -- bookkeeping ----------------------------------------------------------
     def _paged_layers(self):
         """The stacked {"pk","pv","bt"} dict of every paged pattern position."""
         return list(self.cache["blocks"].values())
+
+    def live_tokens(self) -> int:
+        """Tokens currently resident in active slots' caches."""
+        return sum(len(r.prompt) + len(r.out) for r in self.slots
+                   if r is not None)
+
+    def pool_utilization(self) -> float:
+        """Chunk-averaged live tokens per allocated-block token capacity:
+        the share of the reserved KV memory that backs live tokens."""
+        if self._util_cap_sum == 0:
+            return 0.0
+        return self._util_token_sum / self._util_cap_sum
+
+    def _now(self) -> float:
+        return self.clock.now if self.clock is not None else time.perf_counter()
 
     def _next_key(self) -> Optional[int]:
         if self.rng is None:
@@ -321,12 +376,19 @@ class Engine:
 
     def fail_request(self, req: Request, error: str,
                      kind: str = "admission"):
-        """Retire an unadmitted request with a per-request error status."""
+        """Retire an unadmitted request with a per-request error status
+        (``kind`` "shed" is the scheduler's load-shedding path)."""
         req.done = True
         req.error = error
         req.error_kind = kind
         self.finished.append(req)
         self.failed_requests += 1
+        if kind == "shed":
+            self.shed_requests += 1
+            if self.meter is not None:
+                self.meter.note_shed()
+        if self.meter is not None:
+            self.meter.note_request_failure()
         log.warning("request %d failed (%s): %s", req.rid, kind, error)
 
     # -- admission ------------------------------------------------------------
@@ -366,7 +428,7 @@ class Engine:
     @torch.inference_mode()
     def _admit_group(self, group: List[Request], slot_ids: List[int],
                      bucket: int):
-        now = time.perf_counter()
+        now = self._now()
         r_real = len(group)
         r_pad = 1
         while r_pad < r_real:
@@ -395,8 +457,15 @@ class Engine:
                      true_len[:r_real])
         self.prefill_calls += 1
         self.prefill_rows += r_real
+        if self.meter is not None:
+            # bucket padding is billed work; pow2 pad rows are not
+            self.meter.note_prefill(r_real, bucket,
+                                    [len(r.prompt) for r in group])
         tok0_host = tok0.cpu().numpy()  # one sync per GROUP
-        t_first = time.perf_counter()
+        if self.clock is not None:
+            # one bucket's worth of token-forwards (rows run in parallel)
+            self.clock.advance(bucket * self.clock.prefill_token_cost)
+        t_first = self._now()
         for r, req in enumerate(group):
             sid = slot_ids[r]
             self.slots[sid] = req
@@ -406,6 +475,8 @@ class Engine:
             req.out.append(int(tok0_host[r]))
             if req.t_first is None:  # a resumed request keeps its real TTFT
                 req.t_first = t_first
+            if self.clock is not None:
+                req.token_times.append(t_first)
             if len(req.out) >= req.effective_max:
                 self._retire(sid)
 
@@ -459,6 +530,8 @@ class Engine:
             self._slot_blocks[i] = []
         self.preempted.append(req)
         self.preempt_count += 1
+        if self.meter is not None:
+            self.meter.note_preemption()
         log.info("preempted request %d from slot %d (%d tokens kept)",
                  req.rid, i, len(req.out))
 
@@ -521,9 +594,34 @@ class Engine:
             raise ValueError(
                 "refreshed calibration must preserve the frozen site names: "
                 f"{calibration.site_names()} != {cur.site_names()}")
-        self.substrate = self.substrate.frozen(calibration)
+        old = self.substrate
+        self.substrate = old.frozen(calibration)
         self.cfg = self.cfg.replace(imc=self.substrate)
         self.swap_count += 1
+        if self.meter is not None:
+            self.meter.note_swap()
+            if self.meter.substrate is old:
+                self.meter.substrate = self.substrate
+
+    def swap_substrate(self, substrate, time_scale: float = 1.0):
+        """Hot-swap the execution substrate between chunks (load-adaptive
+        frontier degradation).  The live frozen calibration, if any, is
+        re-attached to the incoming substrate, so its site names are kept;
+        ``time_scale`` is the new virtual cost of a decode step (a degraded
+        design point's frontier delay ratio, < 1)."""
+        sub = substrate_lib.as_substrate(substrate)
+        if self.substrate.policy == "frozen":
+            sub = sub.frozen(self.substrate.calibration)
+        old = self.substrate
+        self.substrate = sub
+        self.cfg = self.cfg.replace(imc=sub)
+        self.substrate_swaps += 1
+        if self.clock is not None:
+            self.clock.time_scale = time_scale
+        if self.meter is not None:
+            self.meter.note_substrate_swap(sub)
+            if self.meter.substrate is old:
+                self.meter.substrate = sub
 
     # -- decode ----------------------------------------------------------------
     def next_chunk(self) -> int:
@@ -567,16 +665,31 @@ class Engine:
         active = torch.as_tensor([s is not None for s in self.slots],
                                  device=self.device)
         block = self._run_chunk(n_steps, active, self._next_key())
+        if self.meter is not None:
+            # active slots at chunk start each ran n_steps token-forwards
+            self.meter.note_decode(self.active, n_steps)
         block = block.cpu().numpy()  # the one host transfer per chunk
         self.decode_calls += 1
         self.decode_steps += n_steps
         self.host_transfer_bytes += block.nbytes
+        if self.alloc.used_count:
+            # live tokens against the token capacity of the allocated blocks
+            self._util_token_sum += self.live_tokens()
+            self._util_cap_sum += self.alloc.used_count * self.block
+        dt = None
+        if self.clock is not None:
+            dt = self.clock.time_scale
+            self.clock.advance(n_steps * dt)
         for i, req in enumerate(self.slots):
             if req is None:
                 continue
             self._slot_pos[i] += n_steps
             take = min(n_steps, req.effective_max - len(req.out))
             req.out.extend(int(t) for t in block[i, :take])
+            if dt is not None:
+                t_end = self.clock.now
+                req.token_times.extend(
+                    t_end - (take - 1 - j) * dt for j in range(take))
             if len(req.out) >= req.effective_max:
                 self._retire(i)
         return block
@@ -602,6 +715,90 @@ def serve(engine: Engine, requests: List[Request]) -> List[Request]:
     return engine.finished
 
 
+def serve_slo(engine: Engine, requests: List[Request], policy=None,
+              controller=None) -> List[Request]:
+    """Real-time SLO serve loop: requests ARRIVE at their ``arrive_at``
+    virtual times, a ``launch.scheduler`` policy orders the queue and sheds
+    hopeless work, preempted requests re-queue at the front, and an optional
+    ``PressureController`` walks the EDAP frontier under load.
+
+    Every submitted request leaves through ``engine.finished`` exactly once:
+    completed, errored or shed.  The loop is duck-typed over the engine
+    (``clock``, ``queue_depth``, ``active``, ``preempted``, ``finished``,
+    ``admit_pending``, ``decode_chunk``, ``fail_request``), so model-free
+    fakes can drive it in tests."""
+    from repro_torch.launch.scheduler import FIFOPolicy
+    from repro_torch.runtime.workload import VirtualClock
+
+    if policy is None:
+        policy = FIFOPolicy()
+    if engine.clock is None:
+        engine.clock = VirtualClock()
+    clock = engine.clock
+    arrivals = sorted(requests, key=lambda r: (
+        r.arrive_at if r.arrive_at is not None else 0.0, r.rid))
+    queue: List[Request] = []
+    while arrivals or queue or engine.active:
+        while arrivals and (arrivals[0].arrive_at is None
+                            or arrivals[0].arrive_at <= clock.now):
+            queue.append(arrivals.pop(0))
+        if not queue and not engine.active:
+            # idle gap: jump to the next arrival instead of spinning
+            clock.advance(max(0.0, arrivals[0].arrive_at - clock.now))
+            continue
+        engine.queue_depth = len(queue)
+        if controller is not None:
+            controller.update()
+        for r in policy.shed(queue, clock.now):
+            engine.fail_request(
+                r, f"shed by {policy.name} policy at t={clock.now:.1f} "
+                   f"(TTFT deadline unmeetable)", kind="shed")
+        policy.order(queue, clock.now)
+        admitted = engine.admit_pending(queue)
+        engine.queue_depth = len(queue)
+        if queue and not engine.active and not admitted:
+            engine.fail_request(
+                queue.pop(0),
+                "cannot be admitted into an idle engine (slots or KV block "
+                "pool too small)")
+            continue
+        engine.decode_chunk()
+        if engine.preempted:
+            queue[:0] = engine.preempted
+            engine.preempted.clear()
+    engine.queue_depth = 0
+    return engine.finished
+
+
+def serve_workload(engine: Engine, wcfg, policy: str = "fifo",
+                   ladder=None) -> Tuple[List[Request], dict]:
+    """Draw the seeded workload ``wcfg`` (a ``runtime.workload``
+    ``WorkloadConfig``), serve it through :func:`serve_slo` under the named
+    scheduler policy - with a ``PressureController`` over ``ladder`` (a
+    substrate ladder) when one is given - and return the finished requests
+    and the SLO summary."""
+    from repro_torch.launch.metering import slo_summary
+    from repro_torch.launch.scheduler import PressureController, make_policy
+    from repro_torch.runtime.workload import generate
+
+    requests = generate(wcfg, engine.cfg.vocab_size)
+    pol = make_policy(policy)
+    controller = (PressureController(engine, ladder) if ladder is not None
+                  else None)
+    finished = serve_slo(engine, requests, policy=pol, controller=controller)
+    summary = slo_summary(finished, elapsed=engine.clock.now,
+                          policy=pol.name)
+    summary.update(
+        preemptions=engine.preempt_count,
+        shed=engine.shed_requests,
+        pool_utilization=round(engine.pool_utilization(), 4),
+        substrate_swaps=engine.substrate_swaps,
+    )
+    if controller is not None:
+        summary.update(controller.counters())
+    return finished, summary
+
+
 class _Waits(argparse.Action):
     """A reference flag whose feature is not ported yet."""
 
@@ -611,15 +808,13 @@ class _Waits(argparse.Action):
 
     def __call__(self, parser, namespace, values, option_string=None):
         parser.error(f"{option_string} is not ported to PyTorch yet "
-                     "(see ROADMAP: metering, prefix cache, drift, faults, "
-                     "SLO workloads and meshes come in later slices)")
+                     "(see ROADMAP: the prefix cache, drift, faults and "
+                     "meshes come in later slices)")
 
 
 _WAITING_FLAGS = (
-    "--energy-report", "--energy-snr-db", "--recalibrate",
-    "--drift-sample-every", "--drift-check-every", "--inject-drift",
-    "--workload", "--workload-seed", "--overload", "--slo-policy", "--alloc",
-    "--degrade", "--drift-pause-depth", "--prefix-cache",
+    "--recalibrate", "--drift-sample-every", "--drift-check-every",
+    "--inject-drift", "--drift-pause-depth", "--prefix-cache",
     "--shared-prefix-len", "--prefix-dup", "--mesh",
 )
 
@@ -642,6 +837,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--kv-blocks", type=int, default=None,
                     help="physical KV pool size in blocks (default: full "
                          "provisioning, slots * max_blocks + 1)")
+    ap.add_argument("--alloc", default="lazy", choices=["lazy", "reserve"],
+                    help="KV block allocation: lazy (allocate on block-"
+                         "boundary crossing, preempt on pool exhaustion) or "
+                         "reserve (worst case at admission)")
     ap.add_argument("--imc-mode", default=None,
                     choices=[None, "fakequant", "imc_analytic",
                              "imc_bitserial"])
@@ -651,6 +850,37 @@ def build_parser() -> argparse.ArgumentParser:
                     help="'frozen' calibrates quantizer ranges on a seeded "
                          "reference batch and turns analog noise off, "
                          "making outputs batch-composition-invariant")
+    ap.add_argument("--energy-report", action="store_true",
+                    help="meter the served traffic and print J/token, "
+                         "J/request and EDP/token at the min-energy QS/QR/CM "
+                         "design points (512-row banks, --energy-snr-db "
+                         "targets); sites are the FULL model's matmuls, so "
+                         "smoke runs report deployment-scale energy")
+    ap.add_argument("--energy-snr-db", default="14,26",
+                    help="comma list of SNR_T targets for --energy-report")
+    ap.add_argument("--workload", default="none",
+                    choices=["none", "poisson", "bursty"],
+                    help="SLO workload: seeded timed arrivals "
+                         "(runtime.workload) driven through the serve_slo "
+                         "loop under --slo-policy, instead of replaying "
+                         "--prompt-lens")
+    ap.add_argument("--workload-seed", type=int, default=0,
+                    help="seed of every workload draw (arrivals, lengths, "
+                         "classes)")
+    ap.add_argument("--overload", type=float, default=2.0,
+                    help="offered load as a multiple of the engine's "
+                         "capacity (with --workload)")
+    ap.add_argument("--slo-policy", default="fifo",
+                    choices=["fifo", "sjf", "deadline"],
+                    help="scheduler policy of the SLO loop: fifo, "
+                         "shortest-prompt-first, or SLO-deadline admission "
+                         "with load shedding")
+    ap.add_argument("--degrade", action="store_true",
+                    help="load-adaptive frontier degradation: under queue or "
+                         "pool pressure, swap the substrate one step down "
+                         "the EDAP frontier (lower B_ADC) and back up when "
+                         "pressure clears (requires --imc-mode imc_analytic "
+                         "--imc-policy frozen)")
     ap.add_argument("--decode-attn", default="kernel",
                     choices=["kernel", "gather"],
                     help="paged decode attention: the paged-attention kernel "
@@ -666,9 +896,22 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     """Serve a seeded synthetic workload; returns a report with the finished
-    requests, the engine and the host-clock throughput and TTFT."""
-    args = build_parser().parse_args(argv)
+    requests, the engine, the host-clock throughput and TTFT, and (where
+    asked for) the SLO summary (``"slo"``), the meter and its
+    ``EnergyReport``s (``"energy"``)."""
+    ap = build_parser()
+    args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    base_pt = None
+    if args.degrade:
+        if not (args.imc_mode == "imc_analytic"
+                and args.imc_policy == "frozen"):
+            ap.error("--degrade requires --imc-mode imc_analytic "
+                     "--imc-policy frozen (the frontier ladder re-freezes "
+                     "each level against the live calibration)")
+        from repro_torch.core.design import optimize
+
+        base_pt = optimize(n=512, snr_t_target_db=26.0, kinds=("qr",))
     device = resolve_device(args.device)
 
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
@@ -677,8 +920,13 @@ def main(argv=None) -> dict:
     if args.imc_mode:
         from repro_torch.core.imc_linear import IMCConfig
 
-        cfg = cfg.replace(imc=substrate_lib.as_substrate(
-            IMCConfig(mode=args.imc_mode, bx=7, bw=7, v_wl=args.imc_vwl)))
+        if base_pt is not None:
+            # start at the committed frontier point: level 0 of the ladder
+            sub = substrate_lib.substrate_for_design(base_pt)
+        else:
+            sub = substrate_lib.as_substrate(
+                IMCConfig(mode=args.imc_mode, bx=7, bw=7, v_wl=args.imc_vwl))
+        cfg = cfg.replace(imc=sub)
         rng = prng.derive_seed(args.seed, 7)
     lens = ([int(x) for x in args.prompt_lens.split(",")] if args.prompt_lens
             else [args.prompt_len])
@@ -695,21 +943,47 @@ def main(argv=None) -> dict:
                  len(cfg.imc.calibration.site_names()))
     max_bucket = max(prefill_bucket(n, True, 10**9) for n in lens)
     cache_len = max_bucket + args.gen + 8
+    meter = None
+    if args.energy_report:
+        from repro_torch.launch.metering import DPMeter
+
+        meter = DPMeter(configs.get(args.arch))
+    clock = None
+    if args.workload != "none":
+        from repro_torch.runtime.workload import VirtualClock
+
+        clock = VirtualClock()
     engine = Engine(cfg, params, args.batch, cache_len, rng=rng,
                     max_chunk=args.chunk, block_size=args.block,
-                    kv_blocks=args.kv_blocks)
-    rnp = np.random.default_rng(args.seed)
-    requests = [Request(rid=i, max_new=args.gen,
-                        prompt=rnp.integers(0, cfg.vocab_size,
-                                            lens[i % len(lens)]))
-                for i in range(args.requests)]
+                    kv_blocks=args.kv_blocks, meter=meter,
+                    alloc_policy=args.alloc, clock=clock)
+    summary = None
     t0 = time.perf_counter()
-    finished = serve(engine, requests)
+    if args.workload != "none":
+        from repro_torch.runtime import workload as workload_lib
+
+        wcfg = workload_lib.make_overload_config(
+            n_requests=args.requests, seed=args.workload_seed,
+            overload=args.overload, slots=args.batch, max_new=args.gen,
+            arrival=args.workload)
+        ladder = (substrate_lib.substrate_ladder(base_pt, steps=2)
+                  if base_pt is not None else None)
+        finished, summary = serve_workload(engine, wcfg, args.slo_policy,
+                                           ladder)
+    else:
+        rnp = np.random.default_rng(args.seed)
+        requests = [Request(rid=i, max_new=args.gen,
+                            prompt=rnp.integers(0, cfg.vocab_size,
+                                                lens[i % len(lens)]))
+                    for i in range(args.requests)]
+        finished = serve(engine, requests)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     total_tokens = sum(len(r.out) for r in finished)
-    ttfts = [r.ttft for r in finished if r.ttft is not None]
+    # under a virtual clock TTFT is in decode steps (the SLO summary's)
+    ttfts = ([r.ttft for r in finished if r.ttft is not None]
+             if engine.clock is None else [])
     report = {
         "finished": finished,
         "engine": engine,
@@ -717,6 +991,9 @@ def main(argv=None) -> dict:
         "tokens": total_tokens,
         "tok_s": total_tokens / dt if dt > 0 else float("nan"),
         "ttft_ms": 1e3 * float(np.mean(ttfts)) if ttfts else float("nan"),
+        "slo": summary,
+        "meter": meter,
+        "energy": [],
     }
     log.info(
         "served %d requests on %s, %d tokens, %d decode chunks (%d steps), "
@@ -730,6 +1007,33 @@ def main(argv=None) -> dict:
     if failed:
         log.warning("%d request(s) finished with an error: %s", len(failed),
                     failed)
+    if summary is not None:
+        print(f"serve_slo [{args.workload} x{args.overload:g} overload, "
+              f"policy={summary['policy']}, alloc={args.alloc}]:")
+        from repro_torch.launch.metering import format_slo_summary
+
+        print(format_slo_summary(summary))
+    if meter is not None:
+        from repro_torch.core.design import optimize
+        from repro_torch.launch.metering import (
+            format_report,
+            serve_energy_report,
+        )
+
+        # bill through the substrate each min-energy design point implies
+        for snr_db in (float(x) for x in args.energy_snr_db.split(",")):
+            for kind in ("qs", "qr", "cm"):
+                pt = optimize(n=512, snr_t_target_db=snr_db, kinds=(kind,))
+                if pt is None:
+                    continue
+                report["energy"].append(serve_energy_report(
+                    meter, substrate=substrate_lib.substrate_for_design(pt),
+                    generated_tokens=total_tokens, requests=len(finished)))
+        print(f"serve-path energy (billed prefill tokens="
+              f"{meter.prefill_billed_tokens} of which padding="
+              f"{meter.prefill_pad_tokens}, decode tokens="
+              f"{meter.decode_billed_tokens}):")
+        print(format_report(report["energy"]))
     return report
 
 

@@ -11,13 +11,16 @@ Tolerances: paged attention ctx allclose(rtol=1e-5, atol=1e-5) (the kernel
 sums in another order), pools bit-exact outside garbage block 0; the
 bit-serial kernel bit-exact, with and without noise and gain (it rounds every
 step as the plain version does, and both take gain-weighted plane sums in
-float64).
+float64); the analytic kernel within one ADC step on fewer than 0.1% of the
+outputs with the ADC (its K order differs from cuBLAS), allclose(rtol 1e-5,
+atol 1e-5 * max|y|) without it, and its noise within 3 ulp of the plain
+version's draw.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import imc_mvm, paged_attention as pa, ref
+from repro_torch.kernels import build, imc_mvm, paged_attention as pa, ref
 
 pytestmark = pytest.mark.cuda
 
@@ -118,3 +121,76 @@ def test_bitserial_kernel_matches_plain(dev, shape, noisy):
     y_p = ref.imc_bitserial_ref(xc, wc, gain, spec, seed=seed)
     torch.cuda.synchronize()
     assert torch.equal(y_k, y_p), float((y_k - y_p).abs().max())
+
+
+def _analytic_operands(dev, b, k, m, seed=2):
+    rng = np.random.default_rng(seed)
+    xc = torch.tensor(np.round(rng.normal(size=(b, k)) * 10),
+                      dtype=torch.float32, device=dev)
+    wc = torch.tensor(np.round(rng.normal(size=(k, m)) * 10),
+                      dtype=torch.float32, device=dev)
+    return ref.true_div(xc, (xc @ wc).std(unbiased=False) + 1e-6), wc
+
+
+@pytest.mark.parametrize("shape", [(8, 1024, 64), (130, 700, 257),
+                                   (1, 64, 1), (512, 1536, 6144)])
+def test_analytic_kernel_matches_plain(dev, shape):
+    assert not torch.backends.cuda.matmul.allow_tf32  # plain version in fp32
+    b, k, m = shape
+    xs, wc = _analytic_operands(dev, b, k, m)
+    spec = ref.AnalyticSpec(b_adc=8, sigma_out=0.05, y_clip=4.0)
+    raw = ref.AnalyticSpec(b_adc=8, sigma_out=0.05, y_clip=4.0,
+                           apply_adc=False)
+    before = imc_mvm.analytic_cuda.launches
+    y_k = imc_mvm.imc_analytic_matmul(xs, wc, spec, seed=99)
+    y_p = ref.imc_analytic_ref(xs, wc, spec, seed=99)
+    r_k = imc_mvm.imc_analytic_matmul(xs, wc, raw, seed=99)
+    r_p = ref.imc_analytic_ref(xs, wc, raw, seed=99)
+    clean = imc_mvm.imc_analytic_matmul(xs, wc, raw)
+    torch.cuda.synchronize()
+    assert imc_mvm.analytic_cuda.launches == before + 3
+    d = (y_k - y_p).abs()
+    assert float(d.max()) <= 2 * spec.y_clip / 2**spec.b_adc + 1e-6
+    assert float((d > 1e-6).float().mean()) < 1e-3
+    torch.testing.assert_close(r_k, r_p, rtol=1e-5,
+                               atol=1e-5 * float(r_p.abs().max()))
+    # the noise alone, draw for draw against the plain version's
+    z = spec.sigma_out * ref.analytic_output_noise(99, b, m, device=dev)
+    eps = torch.finfo(torch.float32).eps
+    assert bool(((r_k - clean - z).abs()
+                 <= 3 * eps * (z.abs() + r_k.abs())).all())
+
+
+def test_analytic_kernel_repeats_bit_for_bit(dev):
+    xs, wc = _analytic_operands(dev, 64, 1536, 2048, seed=3)
+    spec = ref.AnalyticSpec(b_adc=8, sigma_out=0.05, y_clip=4.0)
+    a = imc_mvm.imc_analytic_matmul(xs, wc, spec, seed=7)
+    assert torch.equal(a, imc_mvm.imc_analytic_matmul(xs, wc, spec, seed=7))
+    assert not torch.equal(a, imc_mvm.imc_analytic_matmul(xs, wc, spec,
+                                                          seed=8))
+
+
+def test_analytic_failed_launch_raises(dev):
+    """A launch the card refuses (more row tiles than the grid allows)
+    raises; nothing falls back to the plain version."""
+    b = 65536 * 64 + 1
+    xs = torch.zeros((b, 1), device=dev)
+    wc = torch.zeros((1, 1), device=dev)
+    before = imc_mvm.analytic_cuda.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        imc_mvm.imc_analytic_matmul(xs, wc, ref.AnalyticSpec())
+    assert imc_mvm.analytic_cuda.launches == before
+
+
+def test_analytic_unbuildable_source_raises(dev, tmp_path, monkeypatch):
+    """A source nvcc refuses raises at the call; nothing falls back."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "prng.cuh").write_text((build.CSRC / "prng.cuh").read_text())
+    (csrc / "analytic.cu").write_text("this is not CUDA\n")
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.delitem(build._loaded, "analytic", raising=False)
+    xs, wc = _analytic_operands(dev, 4, 64, 8)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        imc_mvm.imc_analytic_matmul(xs, wc, ref.AnalyticSpec())

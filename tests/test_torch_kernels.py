@@ -265,9 +265,22 @@ def test_imc_matmul_matches_reference(mode):
 
 
 def test_imc_matmul_analytic_mode_waits():
-    x, w = torch.zeros(2, 8), torch.zeros(8, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_ops.imc_matmul(x, w, t_ops.IMCMatmulConfig(mode="imc_analytic"))
+    """The analytic mode runs: on CPU tensors it takes the plain version,
+    the fakequant code product through the MPC ADC, and no noise without a
+    seed.  (The name dates from when this mode raised while it waited for
+    its kernel; it is kept so that test runs before and after pair up.)"""
+    rng = np.random.default_rng(12)
+    x = torch.tensor(rng.normal(size=(4, 64)).astype(np.float32))
+    w = torch.tensor(rng.normal(size=(64, 8)).astype(np.float32))
+    cfg = t_ops.IMCMatmulConfig(mode="imc_analytic", bx=7, bw=7, b_adc=8,
+                                snr_a_db=30.0)
+    y = t_ops.imc_matmul(x, w, cfg)
+    fq = t_ops.imc_matmul(x, w, t_ops.IMCMatmulConfig(mode="fakequant",
+                                                      bx=7, bw=7))
+    assert y.shape == (4, 8) and torch.isfinite(y).all()
+    assert torch.equal(y, t_ops.imc_matmul(x, w, cfg))
+    step = float((y - fq).abs().max())
+    assert 0 < step < 0.1 * float(fq.abs().max())
 
 
 def test_bitserial_seeded_call_is_reproducible():
@@ -283,6 +296,175 @@ def test_bitserial_seeded_call_is_reproducible():
     assert torch.equal(a, t_ops.imc_matmul(x, w, cfg, seed=5))
     assert not torch.equal(a, t_ops.imc_matmul(x, w, cfg, seed=6))
     assert not torch.equal(a, t_ops.imc_matmul(x, w, cfg))
+
+
+# ---------------------------------------------------------------------------
+# analytic matmul
+# ---------------------------------------------------------------------------
+
+
+def _analytic_operands(shape):
+    """Rounded normal codes as in tests/test_kernels.py, divided by the
+    product's std (the sigma_yo units the kernel works in)."""
+    b, k, m = shape
+    rng = np.random.default_rng(sum(shape))
+    xc = np.round(rng.normal(size=(b, k)) * 10).astype(np.float32)
+    wc = np.round(rng.normal(size=(k, m)) * 10).astype(np.float32)
+    sig = np.float32(np.std(xc.astype(np.float64) @ wc) + 1e-6)
+    return xc / sig, wc
+
+
+def _adc_close(y_ref, y, spec):
+    """The reference's own tolerance: at most one ADC step (plus 1e-6) and
+    fewer than 0.1% of outputs apart - sums in another K order may land on
+    the other side of a code edge."""
+    d = np.abs(np.asarray(y_ref) - np.asarray(y))
+    assert d.max() <= 2 * spec.y_clip / 2**spec.b_adc + 1e-6
+    assert (d > 1e-6).mean() < 1e-3
+
+
+@pytest.mark.parametrize("shape", [(8, 1024, 64), (130, 700, 257),
+                                   (1, 64, 1)])
+def test_analytic_matmul_matches_reference(shape):
+    """The port's dispatch (plain version on the CPU) against JAX's Pallas
+    kernel in interpret mode and JAX's oracle, seed 99; without the ADC the
+    noise alone (noisy - clean) is sigma_out times the JAX draw within 3
+    float32 ulp."""
+    xs, wc = _analytic_operands(shape)
+    kw = dict(b_adc=8, sigma_out=0.05, y_clip=4.0)
+    y_t = t_mvm.imc_analytic_matmul(torch.tensor(xs), torch.tensor(wc),
+                                    t_ref.AnalyticSpec(**kw), seed=99)
+    spec_j = j_ref.AnalyticSpec(**kw)
+    y_k = j_mvm.imc_analytic_matmul(jnp.asarray(xs), jnp.asarray(wc), spec_j,
+                                    seed=99, interpret=True)
+    y_o = j_ref.imc_analytic_ref(jnp.asarray(xs), jnp.asarray(wc), spec_j,
+                                 seed=99)
+    _adc_close(y_k, y_t.numpy(), spec_j)
+    _adc_close(y_o, y_t.numpy(), spec_j)
+
+    raw_t = t_ref.AnalyticSpec(apply_adc=False, **kw)
+    noisy = t_mvm.imc_analytic_matmul(torch.tensor(xs), torch.tensor(wc),
+                                      raw_t, seed=99).numpy()
+    clean = t_mvm.imc_analytic_matmul(torch.tensor(xs), torch.tensor(wc),
+                                      raw_t).numpy()
+    b, _, m = shape
+    z_j = np.asarray(j_prng.counter_normal(
+        99, j_prng.TAG_ANALYTIC, jnp.arange(b, dtype=jnp.int32)[:, None],
+        jnp.arange(m, dtype=jnp.int32)[None, :]))
+    s = np.float32(0.05) * z_j
+    eps = np.finfo(np.float32).eps
+    assert np.all(np.abs((noisy - clean) - s)
+                  <= 3 * eps * (np.abs(s) + np.abs(noisy)))
+    y_raw_j = j_ref.imc_analytic_ref(jnp.asarray(xs), jnp.asarray(wc),
+                                     j_ref.AnalyticSpec(apply_adc=False, **kw),
+                                     seed=99)
+    np.testing.assert_allclose(noisy, np.asarray(y_raw_j), rtol=1e-5,
+                               atol=1e-5 * float(np.abs(noisy).max()))
+
+
+@pytest.mark.parametrize("x_signed", [True, False])
+def test_imc_matmul_analytic_noiseless_matches_reference(x_signed):
+    """``seed=None`` against JAX's ``key=None``: the same quantization, the
+    same dynamic sigma_yo and MPC ADC, no noise.  One ADC step in real
+    units may separate outputs at knife edges (<0.1% of them)."""
+    rng = np.random.default_rng(13)
+    x = rng.normal(size=(24, 300)).astype(np.float32)
+    if not x_signed:
+        x = np.abs(x)
+    w = rng.uniform(-1, 1, size=(300, 40)).astype(np.float32)
+    kw = dict(mode="imc_analytic", bx=7, bw=7, b_adc=8, snr_a_db=25.0,
+              x_signed=x_signed)
+    y_t = t_ops.imc_matmul(torch.tensor(x), torch.tensor(w),
+                           t_ops.IMCMatmulConfig(**kw)).numpy()
+    y_j = np.asarray(j_ops.imc_matmul(
+        jnp.asarray(x), jnp.asarray(w),
+        j_ops.IMCMatmulConfig(use_kernel=False, **kw)))
+    xc_j, wc_j, dx, dw = j_ops._quantize_operands(
+        jnp.asarray(x), jnp.asarray(w), j_ops.IMCMatmulConfig(**kw))
+    sig = float(jnp.std(xc_j[:8] @ wc_j) + 1e-9)
+    step = 2 * 4.0 / 2**8 * sig * float(dx * dw)
+    d = np.abs(y_t - y_j)
+    assert d.max() <= step * (1 + 1e-5)
+    assert (d > 1e-5 * step).mean() < 1e-3
+    # a frozen sigma_yo (code units) and ranges: the port's kernel path with
+    # the same constants as JAX's
+    frozen = dict(x_max=float(np.abs(x).max()), w_max=1.0, sigma_yo=30.0)
+    y_t = t_ops.imc_matmul(torch.tensor(x), torch.tensor(w),
+                           t_ops.IMCMatmulConfig(**kw), **frozen).numpy()
+    y_j = np.asarray(j_ops.imc_matmul(
+        jnp.asarray(x), jnp.asarray(w),
+        j_ops.IMCMatmulConfig(use_kernel=True, interpret=True, **kw),
+        **frozen))
+    d = np.abs(y_t - y_j)
+    step = 2 * 4.0 / 2**8 * 30.0 * float(dx * dw)
+    assert d.max() <= step * (1 + 1e-5)
+    assert (d > 1e-5 * step).mean() < 1e-3
+
+
+def test_imc_matmul_frozen_sigma_batch_invariant():
+    """Frozen ranges and sigma_yo make the public matmul independent of the
+    batch composition: rows 3:5 alone equal rows 3:5 of the full batch (the
+    port of tests/test_substrate_api.py's test)."""
+    rng = np.random.default_rng(14)
+    x = torch.tensor(rng.normal(size=(16, 96)).astype(np.float32))
+    w = torch.tensor(rng.normal(size=(96, 24)).astype(np.float32))
+    cfg = t_ops.IMCMatmulConfig(mode="imc_analytic", bx=7, bw=7, b_adc=8,
+                                snr_a_db=25.0)
+    kw = dict(x_max=4.0, w_max=float(w.abs().max()), sigma_yo=30.0)
+    y_full = t_ops.imc_matmul(x, w, cfg, **kw)
+    y_solo = t_ops.imc_matmul(x[3:5], w, cfg, **kw)
+    assert torch.equal(y_full[3:5], y_solo)
+
+
+def test_derive_config_from_arch_matches_reference():
+    from repro.core.archs import QSArch as JQSArch
+    from repro_torch.core.archs import QSArch as TQSArch
+
+    for n, v_wl in ((256, 0.7), (512, 0.6), (128, 0.8)):
+        cj = j_ops.derive_config_from_arch(JQSArch(n=n, bx=7, bw=7,
+                                                   v_wl=v_wl), x_signed=False)
+        ct = t_ops.derive_config_from_arch(TQSArch(n=n, bx=7, bw=7,
+                                                   v_wl=v_wl), x_signed=False)
+        for f in ct.__dataclass_fields__:
+            assert getattr(ct, f) == getattr(cj, f), f
+
+
+@pytest.mark.parametrize("mode", ["imc_bitserial", "imc_analytic"])
+def test_ops_end_to_end_snr_tracks_analytics(mode):
+    """``imc_matmul`` with a QSArch-derived config delivers about the
+    analytic SNR: within 3 dB under SNR_A (the reference's test, bit-serial),
+    and in the analytic mode within 3 dB under SNR_a and never above it by
+    more than the quantization and ADC allow."""
+    import dataclasses
+
+    from repro_torch.core.archs import QSArch
+
+    arch = QSArch(n=256, bx=7, bw=7, v_wl=0.7)
+    cfg = dataclasses.replace(
+        t_ops.derive_config_from_arch(arch, x_signed=False), mode=mode)
+    rng = np.random.default_rng(5)
+    x = torch.tensor(np.abs(rng.normal(size=(64, 256))).astype(np.float32))
+    w = torch.tensor(rng.uniform(-1, 1, size=(256, 64)).astype(np.float32))
+    y = t_ops.imc_matmul(x, w, cfg, seed=17).double()
+    y0 = x.double() @ w.double()
+    err = y - y0
+    snr = 10 * np.log10(float(y0.var(unbiased=False))
+                        / float(((err - err.mean()) ** 2).mean()))
+    if mode == "imc_bitserial":
+        assert snr > arch.snr_A_db() - 3.0, (snr, arch.snr_A_db())
+    else:
+        assert arch.snr_a_db() - 3.0 < snr < arch.snr_a_db() + 1.5, (
+            snr, arch.snr_a_db())
+
+
+def test_analytic_wrappers_refuse_cpu_and_other_devices():
+    spec = t_ref.AnalyticSpec()
+    with pytest.raises(ValueError, match="CUDA"):
+        t_mvm.analytic_cuda(torch.zeros(2, 8), torch.zeros(8, 3), spec)
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="no analytic kernel"):
+        t_mvm.imc_analytic_matmul(torch.zeros(2, 8, device=meta),
+                                  torch.zeros(8, 3, device=meta), spec)
 
 
 # ---------------------------------------------------------------------------

@@ -342,3 +342,29 @@ def test_unported_archs_raise():
         t_configs.get("gemma2-9b")
     with pytest.raises(KeyError):
         t_configs.get("no-such-arch")
+
+
+def test_port_imports_neither_jax_nor_repro():
+    """Every module of the port and ``chip_smoke.py`` import only PyTorch,
+    numpy and the port itself: no ``jax`` and nothing of ``repro``."""
+    import ast
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    files = sorted((root / "src" / "repro_torch").rglob("*.py"))
+    files.append(root / "chip_smoke.py")
+    assert len(files) > 20
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                if top in ("jax", "jaxlib", "repro"):
+                    bad.append(f"{path.relative_to(root)}: {name}")
+    assert not bad, bad

@@ -4,8 +4,14 @@ Greedy tokens must be identical to the JAX ``Engine`` on the committed mixed
 workload ``[4, 6, 48, 5, 8, 44, 6, 7]`` with ``rng=None``, on digital, frozen
 ``imc_analytic`` and frozen ``imc_bitserial`` (musicgen-medium SMOKE in
 float32, JAX parameters carried over).  The block allocator keeps the
-reference's contract and conservation law.
+reference's contract and conservation law.  The CLI with CI serve smoke 1's
+flags (``--energy-report``) bills what the JAX main bills, and with smoke 4's
+(a 2x bursty overload under deadline scheduling, lazy KV and frontier
+degradation) gives the same tokens and SLO counters.
 """
+import contextlib
+import io
+
 import jax
 import numpy as np
 import pytest
@@ -15,6 +21,8 @@ from hypothesis import given, settings, strategies as st
 from repro import configs as j_configs
 from repro.core.imc_linear import IMCConfig as JIMC
 from repro.core.substrate import calibrate_model as j_calibrate
+from repro.core.substrate import substrate_for_design as j_for_design
+from repro.launch import metering as j_metering
 from repro.launch import serve as j_serve
 from repro.models import init_params as j_init_params
 from repro_torch import configs as t_configs
@@ -138,9 +146,14 @@ def test_cli_serves_on_cpu_and_refuses_unported_flags():
                         "frozen", "--device", "cpu"])
     assert len(rep["finished"]) == 3 and rep["tokens"] == 9
     assert rep["engine"].host_transfer_bytes > 0
-    for flag in ("--prefix-cache", "--mesh", "--energy-report"):
+    for flag in ("--prefix-cache", "--mesh", "--recalibrate",
+                 "--inject-drift", "--shared-prefix-len"):
         with pytest.raises(SystemExit):
             t_serve.main(["--arch", ARCH, "--smoke", "--device", "cpu", flag])
+    # --degrade needs the frozen analytic substrate, as in the reference
+    with pytest.raises(SystemExit):
+        t_serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                      "--degrade", "--imc-mode", "imc_bitserial"])
 
 
 @given(num_blocks=st.integers(2, 32),
@@ -201,3 +214,112 @@ def test_allocator_rejects_double_free():
         a.free(blocks)
     assert a.alloc(4) is None and a.free_count == 3
     assert torch.tensor(a.alloc(3)).unique().numel() == 3
+
+
+# ---------------------------------------------------------------------------
+# the CLI against the JAX main: CI serve smokes 1 and 4
+# ---------------------------------------------------------------------------
+
+SMOKE1 = ["--arch", ARCH, "--smoke", "--batch", "4", "--gen", "8",
+          "--requests", "6", "--prompt-lens", "5,9,32,4,17,6",
+          "--energy-report"]
+SMOKE4 = ["--arch", ARCH, "--smoke", "--batch", "4", "--gen", "8",
+          "--requests", "12", "--chunk", "4", "--kv-blocks", "11",
+          "--workload", "bursty", "--workload-seed", "0", "--overload", "2.0",
+          "--slo-policy", "deadline", "--alloc", "lazy", "--degrade",
+          "--imc-mode", "imc_analytic", "--imc-policy", "frozen"]
+
+
+@pytest.fixture(scope="module")
+def jax_mains():
+    """Each smoke through the JAX main once, keeping its meter, engine and
+    printed output."""
+    meters, engines = [], []
+
+    class Meter(j_metering.DPMeter):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            meters.append(self)
+
+    class Engine(j_serve.Engine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            engines.append(self)
+
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(j_metering, "DPMeter", Meter)
+        mp.setattr(j_serve, "Engine", Engine)
+        for name, argv in (("smoke1", SMOKE1), ("smoke4", SMOKE4)):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                finished = j_serve.main(argv)
+            out[name] = dict(finished=finished, engine=engines[-1],
+                             stdout=buf.getvalue(),
+                             meter=meters[-1] if name == "smoke1" else None)
+    return out
+
+
+def _port_main(argv, monkeypatch, capsys):
+    """The port's main on the CPU with the JAX main's parameters
+    (``init_params(PRNGKey(0))``, carried over)."""
+    def jax_params(cfg, seed=0, device=None):
+        cfg_j = j_configs.get_smoke(ARCH).replace(imc=None)
+        params = j_init_params(jax.random.PRNGKey(0), cfg_j)
+        return params_from_jax(jax.tree_util.tree_map(np.asarray, params),
+                               device)
+
+    monkeypatch.setattr(t_serve, "init_params", jax_params)
+    rep = t_serve.main(argv + ["--device", "cpu"])
+    return rep, capsys.readouterr().out
+
+
+def test_cli_energy_report_matches_reference(jax_mains, monkeypatch, capsys):
+    ref = jax_mains["smoke1"]
+    rep, out = _port_main(SMOKE1, monkeypatch, capsys)
+    mj, mt = ref["meter"], rep["meter"]
+    for field in ("prefill_billed_tokens", "prefill_true_tokens",
+                  "prefill_rows", "prefill_groups", "decode_billed_tokens",
+                  "decode_chunks"):
+        assert getattr(mt, field) == getattr(mj, field), field
+    assert rep["tokens"] == sum(len(r.out) for r in ref["finished"])
+    from repro.core.design import optimize
+
+    billed = [(t, k) for t in (14.0, 26.0) for k in ("qs", "qr", "cm")
+              if optimize(n=512, snr_t_target_db=t, kinds=(k,)) is not None]
+    assert len(rep["energy"]) == len(billed)
+    for (t, k), e_t in zip(billed, rep["energy"]):
+        e_j = j_metering.serve_energy_report(
+            mj, substrate=j_for_design(optimize(n=512, snr_t_target_db=t,
+                                                kinds=(k,))),
+            generated_tokens=rep["tokens"], requests=len(ref["finished"]))
+        for attr in ("j_per_token", "j_per_request", "edp_per_token"):
+            assert getattr(e_t, attr) == pytest.approx(
+                getattr(e_j, attr), rel=1e-12, abs=0.0), (t, k, attr)
+    # the printed energy table is the reference's, line for line
+    table = out[out.index("serve-path energy"):].strip()
+    assert table in ref["stdout"]
+
+
+def test_cli_overload_degrade_matches_reference(jax_mains, monkeypatch,
+                                                capsys):
+    ref = jax_mains["smoke4"]
+    rep, out = _port_main(SMOKE4, monkeypatch, capsys)
+    tok_j = {r.rid: (r.out, r.error_kind) for r in ref["finished"]}
+    tok_t = {r.rid: (r.out, r.error_kind) for r in rep["finished"]}
+    assert tok_t == tok_j and len(tok_t) == 12
+    eng_j, eng_t = ref["engine"], rep["engine"]
+    assert eng_t.clock.now == eng_j.clock.now
+    for attr in ("preempt_count", "shed_requests", "substrate_swaps",
+                 "decode_steps", "prefill_calls"):
+        assert getattr(eng_t, attr) == getattr(eng_j, attr), attr
+    summary_j = j_metering.slo_summary(ref["finished"],
+                                       elapsed=eng_j.clock.now,
+                                       policy="deadline")
+    for k, v in summary_j.items():
+        assert rep["slo"][k] == v or (v != v and rep["slo"][k] != rep["slo"][k]), k
+    assert rep["slo"]["pool_utilization"] == round(
+        eng_j.pool_utilization(), 4)
+    # the printed SLO summary is the reference's, line for line
+    printed = out[out.index("serve_slo ["):].strip()
+    assert printed in ref["stdout"]
