@@ -8,13 +8,15 @@ Phases, each reported on its own line:
   1 device   the card's name and power limit (nvidia-smi);
   2 build    the CUDA kernels, compiled from the sources in this checkout;
   3 kernels  each kernel against its plain PyTorch version on the card, at the
-             main path's full-width shapes, with its time, the plain
-             version's time, a library call's time where one computes the
-             same function, and the least time the card could take (bound);
-  4 design   the layer-scale design study, the analytic kernel's path: every
+             main path's full-width shapes, with its device time (calls
+             replayed from a CUDA graph), the plain version's time, a library
+             call's time where one computes the same function (also from a
+             graph), and the least time the card could take (bound);
+  4 design   the layer-scale design study, the analytic kernels' path: every
              matmul shape of musicgen-medium at 512 rows through
              ``ops.imc_matmul(mode="imc_analytic")`` at each billed QR and CM
-             design point, delivered SNR_T against the design's prediction;
+             design point (the int8 kernel), delivered SNR_T against the
+             design's prediction, and one 10-bit call (the float32 kernel);
   5 serve    full-width musicgen-medium (48 layers, d_model 1536, bf16,
              seeded random weights) served by the engine on the digital
              substrate (metered, with the energy table), the bit-serial IMC
@@ -29,7 +31,9 @@ Optional: ``--phases ...,profile``, a torch.profiler trace of one decode
 chunk of each full-width substrate - device kernel time by name against the
 chunk's wall time (summary printed, tables under build/chip_smoke/);
 ``--phases ...,tiles``, the analytic kernel's tile instantiations
-(``TILE_CONFIGS``) timed against each other at every site shape.
+(``TILE_CONFIGS``) timed against each other at every site shape;
+``--phases device,host``, the paged-attention wrapper's host cost per call
+(``--src DIR`` times another checkout's package).
 The line before the last is a JSON object with every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a CUDA device, or outside a checkout of the repository,
@@ -48,7 +52,7 @@ ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "chip_smoke"  # logs and profiler tables (git-ignored)
 PHASES = ("device", "build", "kernels", "design", "serve", "parity")
 # not run by default: a profiler trace of one decode chunk per substrate
-EXTRA_PHASES = ("profile", "tiles")
+EXTRA_PHASES = ("profile", "tiles", "host")
 
 # NVIDIA H100 SXM published peaks (data sheet, dense), used for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -72,8 +76,10 @@ def say(phase: str, msg: str):
     print(f"[{phase}] {msg}", flush=True)
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds per call on the card (CUDA events around a run)."""
+def wall_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean milliseconds per eager call (CUDA events around a run of calls):
+    the device time, or the host's time to issue the call where that is
+    longer."""
     import torch
 
     for _ in range(warmup):
@@ -84,6 +90,61 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_kernel_nodes(graph) -> int:
+    """Kernel nodes of a captured CUDA graph (through the driver API)."""
+    import ctypes
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kinds = ctypes.c_int(0)
+    kernels = 0
+    for node in nodes:
+        if cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                   ctypes.byref(kinds)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kernels += kinds.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    return kernels
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device milliseconds per call: ``iters`` calls captured in one
+    CUDA graph, replayed between CUDA events, so the host's time to issue a
+    call (tens of microseconds for a Python wrapper) is not counted.  Raises
+    unless the graph holds at least one kernel per call: a launch that the
+    capture missed would time as nothing."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    nodes = graph_kernel_nodes(graph)
+    if nodes < iters:
+        raise AssertionError(f"the CUDA graph of {iters} calls holds "
+                             f"{nodes} kernels: the capture missed launches")
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -149,6 +210,13 @@ def check_paged_attention(dev):
         raise AssertionError("paged attention (GQA, softcap) differs: max "
                              f"abs {float((c2k - c2p).abs().max())}")
 
+    for _ in range(2):  # the splits' merge order is fixed: the same bits
+        again, _, _ = pa.paged_attention_decode(q, kn, vn, pk.clone(),
+                                                pv.clone(), bt, pos, active,
+                                                scale=scale)
+        if not torch.equal(again, ctx_k):
+            raise AssertionError("paged attention does not repeat bit for "
+                                 "bit")
     # a decode step meets each layer's pools cold: rotate over 4 pool pairs
     # (4 x 102 MB) so no call finds the previous one's rows in the 50 MB L2
     pools = [(pk.clone(), pv.clone()) for _ in range(4)]
@@ -160,7 +228,8 @@ def check_paged_attention(dev):
                                   scale=scale)
 
     ms = time_ms(kernel_call)
-    plain_ms = time_ms(lambda: pa.decode_plain(
+    eager_ms = wall_ms(kernel_call)
+    plain_ms = wall_ms(lambda: pa.decode_plain(
         q, kn, vn, pk_p, pv_p, bt, pos, active, scale=scale), iters=5)
     # yardstick only: SDPA over the gathered pool[bt] view (the port never
     # calls it); the gather itself is not timed
@@ -186,9 +255,12 @@ def check_paged_attention(dev):
     flops = 4 * rows * hkv * g * hd
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
-    say("kernels", f"paged_attention: max_abs_err={err:.3e} ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} library_ms(sdpa)={library_ms:.4f} "
-        f"bound_ms={max(t_bytes, t_ops):.5f}")
+    say("kernels", f"paged_attention: max_abs_err={err:.3e} (repeats bit "
+        f"for bit) ms={ms:.4f} (eager call {eager_ms:.4f}) plain_ms="
+        f"{plain_ms:.4f} library_ms(sdpa)="
+        f"{library_ms:.4f} bound_ms={max(t_bytes, t_ops):.5f}; "
+        f"{nbytes / 1e9:.2f} GB moved at {nbytes / ms / 1e9:.3f} TB/s, "
+        f"{max(t_bytes, t_ops) / ms:.1%} of the bound")
     return {"name": "paged_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention.py:159",
@@ -274,12 +346,12 @@ def check_bitserial(dev):
             main_lm = (xc, wc, spec)
 
     xc, wc, gain, spec = main_gain
-    gain_plain_ms = time_ms(lambda: ref.imc_bitserial_ref(
+    gain_plain_ms = wall_ms(lambda: ref.imc_bitserial_ref(
         xc, wc, gain, spec, seed=4242), iters=3, warmup=1)
     bits = spec.bw * spec.bx
     gain_bound, gain_by = bitserial_bound(b, 1536, 6144, bits, True)
     xc, wc, spec = main_lm
-    lm_plain_ms = time_ms(lambda: ref.imc_bitserial_ref(xc, wc, None, spec),
+    lm_plain_ms = wall_ms(lambda: ref.imc_bitserial_ref(xc, wc, None, spec),
                           iters=3, warmup=1)
     lm_bound, lm_by = bitserial_bound(b, 1536, 2048, bits, False)
     # the kernel's share of one decode step: 48 layers of four 1536->1536
@@ -388,7 +460,7 @@ def check_analytic(dev):
                                          "sigma_out * z by more than 3 ulp")
             ms = time_ms(lambda: imc_mvm.imc_analytic_matmul(xs, wc, spec,
                                                              seed=seed))
-            plain_ms = time_ms(lambda: ref.imc_analytic_ref(xs, wc, spec,
+            plain_ms = wall_ms(lambda: ref.imc_analytic_ref(xs, wc, spec,
                                                             seed=seed))
             lib_ms = time_ms(lambda: torch.matmul(xs, wc))
             bound, by = analytic_bound(b, k, m)
@@ -408,6 +480,138 @@ def check_analytic(dev):
     return row
 
 
+def int8_bound(b, k, m):
+    """(bound_ms, bound_by) of one int8 analytic call: int8 x and w and the
+    f32 output (and sigma_yo) moved once over the HBM rate, or the 2 B K M
+    int8 operations of the code product over the int8 tensor-core peak."""
+    t_bytes = (b * k + k * m + 4 * b * m + 4) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * b * k * m / INT8_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_analytic_int8(dev):
+    """The int8 codes route at every musicgen-medium site shape, B = 8 and
+    512, at the QR 26 dB design point (unsigned activation codes of its bx
+    bits, signed weight codes of its bw, sigma_yo of the first 8 rows' code
+    product as ``ops.imc_matmul`` makes it), seeded noise and the ADC.
+    Held to the same tolerance as the float32 kernel against its plain
+    version (at most 0.1% of outputs one ADC step apart; without the ADC
+    allclose(rtol 1e-5, atol 1e-5 * max|y|); the noise alone within 3 ulp of
+    sigma_out * z at one shape).  Timed on operands already in int8, (M, K),
+    against the float32 SIMT kernel (``csrc/analytic.cu``) on the same codes
+    in the order A B B A, against ``torch.matmul`` of the float32 operands
+    (product only) and, where it takes the shape (B > 16), ``torch._int_mm``
+    of the int8 codes (product only, the x bytes read as int8)."""
+    import torch
+
+    from repro_torch.core.design import optimize
+    from repro_torch.kernels import imc_mvm, ref
+
+    pt = optimize(n=512, snr_t_target_db=26.0, kinds=("qr",))
+    spec = ref.AnalyticSpec(b_adc=pt.b_adc,
+                            sigma_out=10.0 ** (-pt.snr_a_db / 20.0),
+                            y_clip=4.0)
+    raw = ref.AnalyticSpec(b_adc=spec.b_adc, sigma_out=spec.sigma_out,
+                           y_clip=spec.y_clip, apply_adc=False)
+    step = 2 * spec.y_clip / 2**spec.b_adc
+    seed = 1234
+    kw = dict(bx=pt.bx, bw=pt.bw, x_signed=False)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    worst, row = 0.0, None
+    for b in (8, 512):
+        for k, m in SITE_SHAPES:
+            x = torch.rand((b, k), generator=gen, device=dev)
+            w = torch.rand((k, m), generator=gen, device=dev) * 2 - 1
+            xc, _ = ref.quantize_codes(x, pt.bx, False, x.abs().max())
+            wc, _ = ref.quantize_codes(w, pt.bw, True, w.abs().max())
+            sig = (xc[:8] @ wc).std(unbiased=False) + 1e-9
+            xs = ref.true_div(xc, sig)
+            y_k = imc_mvm.imc_analytic_codes_matmul(xc, wc, sig, spec,
+                                                    seed=seed, **kw)
+            r_k = imc_mvm.imc_analytic_codes_matmul(xc, wc, sig, raw,
+                                                    seed=seed, **kw)
+            y_p = ref.imc_analytic_ref(xs, wc, spec, seed=seed)
+            r_p = ref.imc_analytic_ref(xs, wc, raw, seed=seed)
+            torch.cuda.synchronize()
+            diff = (y_k - y_p).abs()
+            frac = float((diff > 1e-6).float().mean())
+            if float(diff.max()) > step + 1e-6 or frac >= 1e-3:
+                raise AssertionError(
+                    f"analytic_int8 {b}x{k}x{m}: {frac:.2e} of outputs "
+                    f"differ (limit 1e-3), max {float(diff.max())} (limit "
+                    f"{step})")
+            atol = 1e-5 * float(r_p.abs().max())
+            if not torch.allclose(r_k, r_p, rtol=1e-5, atol=atol):
+                raise AssertionError(
+                    f"analytic_int8 {b}x{k}x{m} without the ADC differs: max "
+                    f"abs {float((r_k - r_p).abs().max())}")
+            if (b, k, m) == (8, 6144, 1536):  # the longest K, fewest rows
+                clean = imc_mvm.imc_analytic_codes_matmul(xc, wc, sig, raw,
+                                                          **kw)
+                z = spec.sigma_out * ref.analytic_output_noise(seed, b, m,
+                                                               device=dev)
+                eps = torch.finfo(torch.float32).eps
+                if not bool(((r_k - clean - z).abs()
+                             <= 3 * eps * (z.abs() + r_k.abs())).all()):
+                    raise AssertionError("analytic_int8 noise differs from "
+                                         "sigma_out * z by more than 3 ulp")
+                if not torch.equal(y_k, imc_mvm.imc_analytic_codes_matmul(
+                        xc, wc, sig, spec, seed=seed, **kw)):
+                    raise AssertionError("analytic_int8 does not repeat bit "
+                                         "for bit")
+            worst = max(worst, float(diff.max()))
+            x8 = xc.to(torch.uint8)
+            w8 = wc.t().contiguous().to(torch.int8)
+            sig1 = sig.reshape(1)
+
+            def int8_call():
+                imc_mvm.analytic_int8_cuda(x8, w8, sig1, spec, seed=seed)
+
+            def simt_call():
+                imc_mvm.imc_analytic_matmul(xs, wc, spec, seed=seed)
+
+            t_i8, t_simt = [], []
+            for fn, acc in ((int8_call, t_i8), (simt_call, t_simt),
+                            (simt_call, t_simt), (int8_call, t_i8)):
+                acc.append(time_ms(fn))
+            ms, simt_ms = sum(t_i8) / 2, sum(t_simt) / 2
+            eager_ms = wall_ms(lambda: imc_mvm.imc_analytic_codes_matmul(
+                xc, wc, sig, spec, seed=seed, **kw))
+            plain_ms = wall_ms(lambda: ref.imc_analytic_ref(
+                ref.true_div(xc, sig), wc, spec, seed=seed))
+            mm_ms = time_ms(lambda: torch.matmul(xs, wc))
+            int_mm_ms = None
+            if b > 16:
+                x8s, w8t = x8.view(torch.int8), w8.t()
+                int_mm_ms = time_ms(lambda: torch._int_mm(x8s, w8t))
+            bound, by = int8_bound(b, k, m)
+            if not (ms < min(t_simt)):
+                raise AssertionError(
+                    f"analytic_int8 {b}x{k}x{m}: {t_i8} ms is not faster "
+                    f"than the SIMT kernel's {t_simt} ms")
+            say("kernels", f"analytic_int8 {b}x{k}x{m} bx={pt.bx} bw="
+                f"{pt.bw} b_adc={spec.b_adc} tile=64x"
+                f"{imc_mvm.int8_tile(b, m)}: {frac:.2e} of outputs differ, max_abs_err="
+                f"{float(diff.max()):.3e}; ms={t_i8[0]:.4f}/{t_i8[1]:.4f} "
+                f"(eager codes-route call with its casts {eager_ms:.4f}) "
+                f"simt_ms={t_simt[0]:.4f}/{t_simt[1]:.4f} (A B B A) "
+                f"plain_ms={plain_ms:.4f} library_ms(torch.matmul f32, "
+                f"product only)={mm_ms:.4f} torch._int_mm_ms="
+                + ("n/a" if int_mm_ms is None else f"{int_mm_ms:.4f}")
+                + f" bound_ms={bound:.5f} ({by}, {bound / ms:.1%} of it)")
+            if (b, k, m) == (512, 1536, 6144):
+                row = {"name": "analytic_int8", "route": "cuda",
+                       "source": "src/repro_torch/kernels/csrc/"
+                                 "analytic_int8.cu",
+                       "replaces": "src/repro/kernels/imc_mvm.py:284",
+                       "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_by": by, "library_ms": mm_ms,
+                       "int_mm_ms": int_mm_ms, "simt_ms": simt_ms,
+                       "shape": f"{b}x{k}x{m}, noise and ADC"}
+    row["max_abs_err"] = worst
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the design study at layer scale, the analytic kernel's path
 # ---------------------------------------------------------------------------
@@ -419,10 +623,12 @@ def phase_design(dev):
     sites through ``ops.imc_matmul(mode="imc_analytic")`` on the card at
     B = 512, with operands of the design's statistics (x uniform in [0, 1),
     w uniform in [-1, 1)).  Prints the delivered SNR_T beside the design's
-    SNR_T and SNR_a, and asserts the paper's bound SNR_T <= SNR_a + 1.5 dB
-    and that every call launched the analytic kernel once.  Then times one
-    whole ``ops.imc_matmul`` call per shape at the QR 26 dB point (after the
-    launches are read, so the timing's launches do not count)."""
+    SNR_T and SNR_a, and asserts the paper's bound SNR_T <= SNR_a + 1.5 dB.
+    Every billed point has codes of 6 or 8 bits, so every call launches the
+    int8 kernel once; one more call with 10-bit codes takes the float32
+    kernel, as the width rule says.  Returns those launch counts.  Then
+    times one whole ``ops.imc_matmul`` call per shape at the QR 26 dB point
+    (after the launches are read, so the timing's launches do not count)."""
     import math
 
     import torch
@@ -466,15 +672,30 @@ def phase_design(dev):
                 f"b_adc={pt.b_adc}, {pt.n_banks} bank(s)): predicted SNR_T "
                 f"{pt.snr_t_db:.2f} dB, SNR_a {pt.snr_a_db:.2f} dB; "
                 f"delivered at B=512: {'; '.join(got)} dB")
-    launches = read_counts()["analytic"]
-    if launches != calls:
-        raise AssertionError(f"design: {launches} analytic launches for "
-                             f"{calls} calls")
+    # codes wider than 8 bits (assign_precisions allows up to 16) take the
+    # float32 kernel: one call at the QR 26 dB point's ADC with 10-bit codes
+    wide = ops.IMCMatmulConfig(mode="imc_analytic", bx=10, bw=10,
+                               b_adc=timed_cfg.b_adc,
+                               snr_a_db=timed_cfg.snr_a_db, x_signed=False)
+    k, m = shapes[0]
+    x = torch.rand((512, k), generator=gen, device=dev)
+    w = torch.rand((k, m), generator=gen, device=dev) * 2 - 1
+    y = ops.imc_matmul(x, w, wide, seed=calls + 1)
+    if not bool(torch.isfinite(y).all()):
+        raise AssertionError("design: the 10-bit call gave non-finite values")
+    counts = read_counts()
+    launches = {"analytic_int8": counts["analytic_int8"],
+                "analytic": counts["analytic"]}
+    if launches != {"analytic_int8": calls, "analytic": 1}:
+        raise AssertionError(f"design: launches {launches} for {calls} calls "
+                             "of at most 8 bits and one of 10 bits")
+    say("design", f"launches: {launches} ({calls} calls of 6- or 8-bit "
+        "codes on the int8 route, one of 10-bit codes on the float32 one)")
     timed = []
     for k, m in shapes:
         x = torch.rand((512, k), generator=gen, device=dev)
         w = torch.rand((k, m), generator=gen, device=dev) * 2 - 1
-        ms = time_ms(lambda: ops.imc_matmul(x, w, timed_cfg, seed=1),
+        ms = wall_ms(lambda: ops.imc_matmul(x, w, timed_cfg, seed=1),
                      iters=10)
         timed.append(f"{k}->{m} {ms:.4f}")
     say("design", f"one ops.imc_matmul call (quantize, sigma_yo, kernel, "
@@ -494,6 +715,7 @@ def reset_counts():
     imc_mvm.bitserial_cuda.launches = 0
     imc_mvm.bitserial_cuda.gain_launches = 0
     imc_mvm.analytic_cuda.launches = 0
+    imc_mvm.analytic_int8_cuda.launches = 0
 
 
 def read_counts():
@@ -503,7 +725,8 @@ def read_counts():
     return {"paged_attention": paged_attention.paged_attention_cuda.launches,
             "bitserial": bs.gain_launches,
             "bitserial_nogain": bs.launches - bs.gain_launches,
-            "analytic": imc_mvm.analytic_cuda.launches}
+            "analytic": imc_mvm.analytic_cuda.launches,
+            "analytic_int8": imc_mvm.analytic_int8_cuda.launches}
 
 
 def serve_run(label, argv, n_layers, vocab):
@@ -605,7 +828,8 @@ def phase_serve():
         raise AssertionError("overload: the frontier was never walked "
                              "(0 substrate swaps)")
     runs = (digital, bitserial, overload)
-    counts = {k: sum(c[k] for c in runs) for k in digital if k != "analytic"}
+    counts = {k: sum(c[k] for c in runs) for k in digital
+              if not k.startswith("analytic")}
     if min(counts.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: "
                              f"{counts}")
@@ -877,13 +1101,16 @@ def profile_chunk(label, cfg, n_slots, prompt_lens, steps, rng,
             and e.self_device_time_total > 0]
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
+    paged = [r for r in rows if "paged_" in r[2]]  # split and combine passes
     (OUT / f"profile_{label}.txt").write_text(prof.key_averages().table(
         sort_by="self_device_time_total", row_limit=40))
     top = "; ".join(f"{k[:48]} {ms:.2f} ms x{n}" for ms, n, k in rows[:6])
     say("profile", f"{label}: {steps}-step chunk, {n_slots} slots: "
         f"{plain_wall_ms / steps:.2f} ms/step without the profiler; with it "
         f"wall {wall_ms:.1f} ms, device kernels {busy_ms:.1f} ms (busy "
-        f"share {busy_ms / wall_ms:.3f}); top: {top}")
+        f"share {busy_ms / wall_ms:.3f}); paged attention "
+        f"{sum(r[0] for r in paged):.2f} ms over "
+        f"{max((r[1] for r in paged), default=0)} launches; top: {top}")
 
 
 def phase_profile():
@@ -955,7 +1182,6 @@ def phase_tiles(dev):
     half = 2.0 ** (spec.b_adc - 1)
     seed = 1234
     gen = torch.Generator(device=dev).manual_seed(2)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     for b in (8, 512):
         for k, m in SITE_SHAPES:
             xs, wc = analytic_operands(gen, b, k, m, pt, dev)
@@ -966,7 +1192,7 @@ def phase_tiles(dev):
                 err = fn(xs.data_ptr(), wc.data_ptr(), out.data_ptr(), b, k,
                          m, 1, ctypes.c_uint32(seed), spec.sigma_out, 1,
                          2.0 * spec.y_clip / 2.0**spec.b_adc, -half, half - 1,
-                         stream)
+                         torch.cuda.current_stream(dev).cuda_stream)
                 if err != 0:
                     raise RuntimeError(f"tile launch failed: {err}")
 
@@ -980,10 +1206,65 @@ def phase_tiles(dev):
             times = {n: [] for n in names}
             for i in order:
                 times[names[i]].append(time_ms(lambda: call(fns[i])))
+                times[names[i]].append(wall_ms(lambda: call(fns[i])))
             say("tiles", f"{b}x{k}x{m}: " + "; ".join(
-                f"{n} " + " / ".join(f"{t:.4f}" for t in ts) + " ms"
+                f"{n} " + " / ".join(f"{t:.4f}" for t in ts[::2]) + " ms ("
+                "eager " + " / ".join(f"{t:.4f}" for t in ts[1::2]) + ")"
                 for n, ts in times.items()) + " (outputs equal the shipped "
                 "kernel's bit for bit)")
+
+
+def phase_host(dev):
+    """The host's cost of one paged-attention call through the wrapper the
+    model calls, ``paged_attention_decode``, at the phase-3 shape and at the
+    digital serve's (8 slots, 69-block tables, 553 pool blocks, contexts
+    32-528): the host milliseconds to issue a call (200 calls with no
+    synchronisation between them, the median of 5 runs; the device ends a
+    call sooner than the host issues the next), beside a call's eager time
+    (CUDA events) and its device time (graph).  With ``--src`` it times
+    another checkout's package the same way."""
+    import statistics
+
+    import torch
+
+    from repro_torch.kernels import paged_attention as pa
+
+    shapes = (("phase-3", 130, 8 * 130 + 1,
+               [17, 130, 511, 640, 777, 900, 1023, 1040]),
+              ("serve", 69, 553, [32, 528, 80, 316, 144, 49, 496, 272]))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bf = torch.bfloat16
+    b, hkv, hd, bs = 8, 24, 64, 8
+    for label, max_blocks, nb, pos in shapes:
+        q = torch.randn((b, hkv, 1, hd), generator=gen, device=dev)
+        kn = torch.randn((b, hkv, hd), generator=gen, device=dev).to(bf)
+        vn = torch.randn((b, hkv, hd), generator=gen, device=dev).to(bf)
+        pk = torch.randn((nb, bs, hkv, hd), generator=gen, device=dev).to(bf)
+        pv = torch.randn((nb, bs, hkv, hd), generator=gen, device=dev).to(bf)
+        perm = torch.randperm(nb - 1, generator=gen, device=dev) + 1
+        bt = perm[: b * max_blocks].reshape(b, max_blocks).to(torch.int32)
+        pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+        active = torch.ones(b, dtype=torch.bool, device=dev)
+
+        def call():
+            pa.paged_attention_decode(q, kn, vn, pk, pv, bt, pos_t, active,
+                                      scale=hd**-0.5)
+
+        runs = []
+        for _ in range(5):
+            for _ in range(20):
+                call()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                call()
+            runs.append((time.perf_counter() - t0) / 200 * 1e3)
+            torch.cuda.synchronize()
+        say("host", f"paged_attention_decode at the {label} shape: host "
+            f"{statistics.median(runs):.4f} ms per call (runs "
+            + " / ".join(f"{r:.4f}" for r in runs) + f"), eager "
+            f"{wall_ms(call, iters=200):.4f} ms, device {time_ms(call):.4f} "
+            f"ms (package {Path(pa.__file__).parents[2]})")
 
 
 # ---------------------------------------------------------------------------
@@ -993,6 +1274,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma list of {PHASES + EXTRA_PHASES}")
+    ap.add_argument("--src", type=Path, default=ROOT / "src",
+                    help="the directory that holds the repro_torch package "
+                    "(another checkout's, to time it the same way)")
     args = ap.parse_args()
     phases = args.phases.split(",")
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -1004,7 +1288,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device visible to PyTorch", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(args.src.resolve()))
     OUT.mkdir(parents=True, exist_ok=True)
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -1020,26 +1304,27 @@ def main() -> int:
 
     from repro_torch.kernels import build
 
-    t = build.build_all()
-    if build.build_log:  # empty when every library was already built
-        (OUT / "kernel_build.log").write_text("\n\n".join(
-            f"== {n}\n{log}" for n, log in build.build_log.items()))
-    say("build", f"{len(build.SOURCES)} kernel libraries ready in {t:.1f} s "
-        f"(nvcc -gencode arch=compute_90a,code=sm_90a; ptxas report in "
-        f"build/chip_smoke/kernel_build.log)")
-    for n, log in build.build_log.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                say("build", f"{n}: {line.strip()}")
+    if "build" in phases:
+        t = build.build_all()
+        if build.build_log:  # empty when every library was already built
+            (OUT / "kernel_build.log").write_text("\n\n".join(
+                f"== {n}\n{log}" for n, log in build.build_log.items()))
+        say("build", f"{len(build.SOURCES)} kernel libraries ready in "
+            f"{t:.1f} s (nvcc -gencode arch=compute_90a,code=sm_90a; ptxas "
+            f"report in build/chip_smoke/kernel_build.log)")
+        for n, log in build.build_log.items():
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line:
+                    say("build", f"{n}: {line.strip()}")
 
     kernels = []
     if "kernels" in phases:
         kernels = [check_paged_attention(dev), *check_bitserial(dev),
-                   check_analytic(dev)]
+                   check_analytic(dev), check_analytic_int8(dev)]
     counts = {}
     if "design" in phases:
         reset_counts()
-        counts["analytic"] = phase_design(dev)
+        counts.update(phase_design(dev))
     if "serve" in phases:
         counts.update(phase_serve())
     for k in kernels:  # None where the phase that counts it did not run
@@ -1050,6 +1335,8 @@ def main() -> int:
         phase_profile()
     if "tiles" in phases:
         phase_tiles(dev)
+    if "host" in phases:
+        phase_host(dev)
     say("done", f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

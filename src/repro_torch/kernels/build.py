@@ -22,16 +22,20 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("paged_attention", "bitserial", "analytic")
+SOURCES = ("paged_attention", "bitserial", "analytic", "analytic_int8")
+# streaming multiprocessors of the H100 the kernels' launch plans fill
+SMS = 132
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
 _SIGNATURES = {
     "paged_attention": ("paged_attention_decode",
-                        [_P] * 10 + [_I] * 7 + [_F, _F, _I, _P]),
+                        [_P] * 10 + [_I] * 14 + [_F, _F, _I, _P]),
     "bitserial": ("imc_bitserial_matmul",
                   [_P] * 4 + [_I] * 7 + [_F, _I, _F, _F, _I, _U, _F, _P]),
     "analytic": ("imc_analytic_matmul",
                  [_P] * 3 + [_I] * 4 + [_U, _F, _I, _F, _F, _F, _P]),
+    "analytic_int8": ("imc_analytic_int8_matmul",
+                      [_P] * 4 + [_I] * 6 + [_U, _F, _I, _F, _F, _F, _P]),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -101,9 +105,6 @@ def library(name: str) -> ctypes.CDLL:
     fn = getattr(lib, fn_name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
-    if name == "paged_attention":
-        lib.paged_attention_split_rows.argtypes = []
-        lib.paged_attention_split_rows.restype = ctypes.c_int
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     lib.kernel_error_string.restype = ctypes.c_char_p
     _loaded[name] = lib

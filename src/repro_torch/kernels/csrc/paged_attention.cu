@@ -9,26 +9,46 @@
 //
 // What bounds it: bytes.  A decode step reads each live K/V row of the slot
 // once (2 * ctx * Hkv * hd * 2 B per slot in bf16) and does ~4 flops per
-// byte, far below the card's ~295 flops/byte balance point.  So the design
-// is about keeping enough independent row loads in flight:
-//  * split pass: one CTA per (kv head, slot, split of 128 logical rows); each
-//    of its 4 warps walks its own rows, 4 at a time (the 4 rows' loads are
-//    issued before any is used), with its own online-softmax state; a lane
-//    holds hd/32 dimensions, a row's dot product is one warp reduction, and
-//    the G query rows of the group share every K/V row loaded.  The CTA
-//    merges its warps and writes one partial (m, l, acc) per split.  The CTA
-//    reads bt[b, j] itself (the TPU kernel's scalar prefetch has no
-//    counterpart);
-//  * combine pass: one CTA per (kv head, slot) merges the splits that hold
-//    valid rows and writes ctx = acc / max(l, 1e-30);
-//  * the TPU's sequential grid axis over blocks becomes the split axis plus
-//    the loops inside a warp; only rows up to each slot's position are read
-//    (a masked row adds p = 0 and a correction of 1, so skipping is exact);
-//  * only the one new row (dest, off) is written, not whole blocks; the new
-//    token is overlaid from k_new/v_new where it is attended, and only for
-//    active rows, so an inactive row attends the stale pool value like the
-//    gather path.  Writes of several inactive slots to block 0 may race;
-//    block 0 is garbage by contract, so they take no lock.
+// byte, far below the card's ~295 flops/byte balance point.  Design:
+//  * one CTA per (group of up to 8 kv heads, slot, split of split_rows
+//    logical rows), one warp per head.  A logical row of the pool holds the
+//    group's heads side by side, heads * hd contiguous elements, so the CTA
+//    copies whole rows (1 KB for 8 heads of 64 bf16);
+//  * the pool offset of each row of the split is computed once at the start
+//    (its block-table entry read once, together with the queries) into
+//    shared memory, so the copies wait on no further global load and do no
+//    division;
+//  * K and V rows stream through a kStages-deep ring of stage_rows-row
+//    stages, filled by 16-byte cp.async: two stages are in flight while the
+//    warps work on the third.  A warp's work per stage is short (no generic
+//    loads, no division): with one or two CTAs per SM each warp runs alone
+//    on its scheduler, so its instruction count per stage is its latency;
+//  * within a warp, LPR lanes hold one row as 16-byte vectors (8 bf16 or 4
+//    f32 each; LPR = 8 for hd = 64 in bf16), so 32 / LPR row groups score
+//    rows at once; a stage holds kRows = 4 rows per row group (128 / LPR
+//    rows, 16 KB of K and 16 KB of V for 8 heads of 64 bf16), and a group
+//    folds its four into its online-softmax state in one step (one
+//    correction, base-2 exponentials).  A row's dot product takes log2(LPR)
+//    shuffles; the groups' states are merged by a fixed butterfly at the
+//    end.  Register state is sized by the instantiated query-group count;
+//  * the plan (heads per CTA, stage and split rows, scratch) is made in
+//    Python (paged_attention.plan_split), so the grid fills the SMs from the
+//    table's capacity without reading the positions on the host;
+//  * a slot whose rows span several splits writes one partial (m, l, acc)
+//    per split, and a combine pass merges them in split order, so the
+//    result is the same bits on every run; its loads do not wait on one
+//    another.  (A merge by the last CTA of each slot, found by an atomic
+//    count, was slower: its fences and three dependent rounds of global
+//    loads sat on the critical path.)  A slot with one split writes ctx
+//    itself;
+//  * only rows up to each slot's position are read (a masked row adds p = 0
+//    and a correction of 1, so skipping is exact); only the one new row is
+//    written, not whole blocks; where the new token is attended, each warp
+//    copies its head's slice of it from k_new/v_new over the stage's row in
+//    shared memory, only for active rows, so an inactive row attends the
+//    stale pool value like the gather path.  Writes of several inactive slots
+//    to block 0 may race; block 0 is garbage by contract, so they take no
+//    lock.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -36,263 +56,455 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerStep = 4;   // rows a warp loads before using any
-constexpr int kSplitRows = 128;   // logical rows per split CTA
-constexpr int kMaxG = 8;          // query rows per kv head
+constexpr int kStages = 3;
+constexpr int kRows = 4;      // rows of a stage per row group of a warp
+constexpr int kMaxHeads = 8;  // kv heads per CTA, one warp each
+constexpr int kMaxG = 8;      // query rows per kv head
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-struct Slot {
-  int p, tail, off, limit;  // position, tail block, row in it, valid rows
-  bool active;
+template <typename T>
+struct Vec;  // one 16-byte vector of T as floats
+template <>
+struct Vec<float> {
+  static constexpr int kN = 4;
+  __device__ __forceinline__ static void load(const float* p, float (&o)[4]) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    o[0] = v.x, o[1] = v.y, o[2] = v.z, o[3] = v.w;
+  }
+};
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
+                                              float (&o)[8]) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      __nv_bfloat162 h;
+      *reinterpret_cast<uint32_t*>(&h) = u[i];
+      const float2 f = __bfloat1622float2(h);
+      o[2 * i] = f.x, o[2 * i + 1] = f.y;
+    }
+  }
 };
 
-__device__ __forceinline__ Slot slot_of(const int* pos, const int* act, int b,
-                                        int bs, int max_blocks) {
-  Slot s;
-  s.p = pos[b];
-  s.active = act[b] != 0;
-  s.tail = s.p / bs;
-  s.off = s.p - s.tail * bs;
-  // rows 0..p are valid, within the table's capacity
-  s.limit = min(s.p + 1, max_blocks * bs);
-  return s;
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
 }
 
-template <typename T, int DPL>
-__global__ void __launch_bounds__(kThreads)
-paged_split_kernel(const float* __restrict__ q, const T* __restrict__ kn,
-                   const T* __restrict__ vn, T* pk, T* pv,
-                   const int* __restrict__ bt, const int* __restrict__ pos,
-                   const int* __restrict__ act, float* __restrict__ part_m,
-                   float* __restrict__ part_l, float* __restrict__ part_acc,
-                   int hkv, int g, int hd, int bs, int max_blocks,
-                   int n_splits, float scale, float cap, int use_cap) {
-  extern __shared__ float smem[];  // kWarps * g * (hd + 2)
-  const int h = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_stages() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
+}
+
+struct Plan {
+  int heads, stage_rows, split_rows, n_splits;
+  int ring_bytes;  // the stage ring
+};
+
+// LPR lanes per row, NV 16-byte vectors per lane, GM query rows per head
+template <typename T, int LPR, int NV, int GM>
+__global__ void __launch_bounds__(kMaxHeads * 32, 2)
+paged_kernel(const float* __restrict__ q, const T* __restrict__ kn,
+             const T* __restrict__ vn, T* pk, T* pv,
+             const int* __restrict__ bt, const int* __restrict__ pos,
+             const int* __restrict__ act, float* __restrict__ part_ml,
+             float* __restrict__ part_acc, float* __restrict__ ctx, int hkv,
+             int g, int hd, int bs, int max_blocks, Plan plan, float scale,
+             float cap, int use_cap) {
+  constexpr int kVec = Vec<T>::kN;
+  constexpr int kRowGroups = 32 / LPR;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int hgroup = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const Slot s = slot_of(pos, act, b, bs, max_blocks);
+  const int heads = plan.heads, sr = plan.stage_rows;
+  const int h0 = hgroup * heads, h = h0 + warp;
+  const int row_elems = heads * hd;  // one logical row of the head group
   const int* bt_row = bt + (size_t)b * max_blocks;
-  const size_t new_base = ((size_t)b * hkv + h) * hd;
+
+  // the pool offset of each logical row of the split (its block-table
+  // entry read once), computed with the queries before the slot's position
+  // is known, so no copy address waits on two dependent global loads and
+  // the copy loop does no division
+  const int lo = sp * plan.split_rows;
+  T* stages = reinterpret_cast<T*>(smem_raw);  // [kStages][2][sr][row_elems]
+  int64_t* row_at =  // [split_rows]
+      reinterpret_cast<int64_t*>(smem_raw + plan.ring_bytes);
+  const int n_rows = min(plan.split_rows, max_blocks * bs - lo);
+  for (int i = tid; i < n_rows; i += blockDim.x) {
+    const int row = lo + i, j = row / bs;
+    row_at[i] = (((int64_t)bt_row[j] * bs + (row - j * bs)) * hkv + h0) * hd;
+  }
+
+  // this lane's vectors of a row: indices v * LPR + li, valid below nvr;
+  // each row group takes kRows rows of every stage (sr = kRows *
+  // kRowGroups); m is kept in the base-2 domain (log2 e times the score)
+  const int li = lane % LPR, grp = lane / LPR;
+  const int nvr = hd / kVec;
+  float qv[GM][NV][kVec], acc[GM][NV][kVec], m[GM], l[GM];
+#pragma unroll
+  for (int gg = 0; gg < GM; ++gg) {
+    m[gg] = kNegInf;
+    l[gg] = 0.0f;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int vi = v * LPR + li;
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        qv[gg][v][e] = (gg < g && vi < nvr)
+            ? q[(((size_t)b * hkv + h) * g + gg) * hd + vi * kVec + e] : 0.0f;
+        acc[gg][v][e] = 0.0f;
+      }
+    }
+  }
+
+  const int p = pos[b];
+  const bool active = act[b] != 0;
+  const int tail = p / bs, off = p - tail * bs;
+  const int limit = min(p + 1, max_blocks * bs);  // rows 0..p, within capacity
 
   if (sp == 0) {
     // the one new row: the slot's tail block for an active in-range row,
     // garbage block 0 otherwise
-    const int dest = (s.tail >= max_blocks || !s.active) ? 0 : bt_row[s.tail];
-    for (int d = tid; d < hd; d += kThreads) {
-      const size_t at = (((size_t)dest * bs + s.off) * hkv + h) * hd + d;
-      pk[at] = kn[new_base + d];
-      pv[at] = vn[new_base + d];
+    const int dest = (tail >= max_blocks || !active) ? 0 : bt_row[tail];
+    const size_t at = ((size_t)dest * bs + off) * hkv * hd + (size_t)h0 * hd;
+    const size_t from = ((size_t)b * hkv + h0) * hd;
+    for (int i = tid; i < row_elems; i += blockDim.x) {
+      pk[at + i] = kn[from + i];
+      pv[at + i] = vn[from + i];
     }
   }
-  const int row_lo = sp * kSplitRows;
-  const int row_hi = min(row_lo + kSplitRows, s.limit);
-  if (row_lo >= row_hi) return;  // the combine pass never reads this split
+  const int hi = min(lo + plan.split_rows, limit);
+  if (lo >= hi) return;  // the whole CTA: no barrier is left waiting
+  const int used = (limit + plan.split_rows - 1) / plan.split_rows;
+  __syncthreads();
 
-  float qv[kMaxG][DPL], acc[kMaxG][DPL], m[kMaxG], l[kMaxG];
-#pragma unroll
-  for (int gg = 0; gg < kMaxG; ++gg) {
-    m[gg] = kNegInf;
-    l[gg] = 0.0f;
-#pragma unroll
-    for (int t = 0; t < DPL; ++t) {
-      const int d = lane * DPL + t;
-      qv[gg][t] = (gg < g && d < hd)
-                      ? q[(((size_t)b * hkv + h) * g + gg) * hd + d] : 0.0f;
-      acc[gg][t] = 0.0f;
+  // a stage: each warp copies whole rows (K rows, then V rows), lanes on
+  // consecutive 16-byte chunks
+  const int chunks_per_row = row_elems / kVec;
+  const int n_warps = blockDim.x >> 5;
+  auto fill = [&](int st, int r0) {
+    T* dst0 = stages + (size_t)st * 2 * sr * row_elems;
+    for (int rr = warp; rr < sr; rr += n_warps) {
+      if (r0 + rr >= hi) break;
+      const int64_t at = row_at[r0 + rr - lo];
+      T* dk = dst0 + (size_t)rr * row_elems;
+      T* dv = dk + (size_t)sr * row_elems;
+      for (int ch = lane; ch < chunks_per_row; ch += 32) {
+        cp_async16(dk + ch * kVec, pk + at + ch * kVec);
+        cp_async16(dv + ch * kVec, pv + at + ch * kVec);
+      }
     }
-  }
+  };
 
-  for (int r0 = row_lo + warp * kRowsPerStep; r0 < row_hi;
-       r0 += kWarps * kRowsPerStep) {
-    float kr[kRowsPerStep][DPL], vr[kRowsPerStep][DPL];
+  const int n_st = (hi - lo + sr - 1) / sr;
 #pragma unroll
-    for (int u = 0; u < kRowsPerStep; ++u) {
-      const int lr = r0 + u;
-      const int j = lr / bs, rr = lr - j * bs;
-      const bool fresh = s.active && j == s.tail && rr == s.off;
-      const size_t at =
-          lr < row_hi ? (((size_t)bt_row[j] * bs + rr) * hkv + h) * hd : 0;
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_st) fill(s, lo + s * sr);
+    cp_async_commit();
+  }
+  const size_t fresh_at = ((size_t)b * hkv + h) * hd;
+  for (int t = 0; t < n_st; ++t) {
+    cp_async_wait_stages();
+    // stage t has landed for every thread, and every warp is done with
+    // stage t - 1, which is refilled next
+    __syncthreads();
+    const int nxt = t + kStages - 1;
+    if (nxt < n_st) fill(nxt % kStages, lo + nxt * sr);
+    cp_async_commit();
+    const T* ks = stages + (size_t)(t % kStages) * 2 * sr * row_elems +
+                  (size_t)warp * hd;
+    const T* vs = ks + (size_t)sr * row_elems;
+    const int r0 = lo + t * sr;
+    if (active && p >= r0 && p < min(r0 + sr, hi)) {
+      // the new token's row, from k_new / v_new: each warp patches its own
+      // head's slice of the stage, so the row reads below stay in shared
+      // memory
+      T* dk = const_cast<T*>(ks) + (size_t)(p - r0) * row_elems;
+      T* dv = dk + (size_t)sr * row_elems;
+      for (int c = lane; c < nvr; c += 32) {  // 16-byte chunks
+        *reinterpret_cast<uint4*>(dk + c * kVec) =
+            *reinterpret_cast<const uint4*>(kn + fresh_at + c * kVec);
+        *reinterpret_cast<uint4*>(dv + c * kVec) =
+            *reinterpret_cast<const uint4*>(vn + fresh_at + c * kVec);
+      }
+      __syncwarp();
+    }
+    float kx[kRows][NV][kVec], vx[kRows][NV][kVec];
+    bool valid[kRows];
 #pragma unroll
-      for (int t = 0; t < DPL; ++t) {
-        const int d = lane * DPL + t;
-        float kx = 0.0f, vx = 0.0f;
-        if (lr < row_hi && d < hd) {
-          kx = to_f32(fresh ? kn[new_base + d] : pk[at + d]);
-          vx = to_f32(fresh ? vn[new_base + d] : pv[at + d]);
+    for (int u = 0; u < kRows; ++u) {
+      const int rr = grp + u * kRowGroups, row = r0 + rr;
+      valid[u] = row < hi;
+      const T* kp = ks + (size_t)rr * row_elems;
+      const T* vp = vs + (size_t)rr * row_elems;
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const int vi = v * LPR + li;
+        if (valid[u] && vi < nvr) {
+          Vec<T>::load(kp + vi * kVec, kx[u][v]);
+          Vec<T>::load(vp + vi * kVec, vx[u][v]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) kx[u][v][e] = 0.0f, vx[u][v][e] = 0.0f;
         }
-        kr[u][t] = kx;
-        vr[u][t] = vx;
       }
     }
 #pragma unroll
-    for (int u = 0; u < kRowsPerStep; ++u) {
-      if (r0 + u >= row_hi) break;
+    for (int gg = 0; gg < GM; ++gg) {
+      float sc[kRows];
 #pragma unroll
-      for (int gg = 0; gg < kMaxG; ++gg) {
-        if (gg >= g) break;
+      for (int u = 0; u < kRows; ++u) {
         float dot = 0.0f;
 #pragma unroll
-        for (int t = 0; t < DPL; ++t) dot += qv[gg][t] * kr[u][t];
-        float sc = warp_sum(dot) * scale;
-        if (use_cap) sc = cap * tanhf(sc / cap);
-        const float m_new = fmaxf(m[gg], sc);
-        const float corr = expf(m[gg] - m_new);
-        const float pr = expf(sc - m_new);
-        l[gg] = l[gg] * corr + pr;
+        for (int v = 0; v < NV; ++v)
 #pragma unroll
-        for (int t = 0; t < DPL; ++t)
-          acc[gg][t] = acc[gg][t] * corr + pr * vr[u][t];
-        m[gg] = m_new;
+          for (int e = 0; e < kVec; ++e) dot += qv[gg][v][e] * kx[u][v][e];
+        sc[u] = dot;
+      }
+      // each row's dot product over its LPR lanes; every lane of the warp
+      // takes part in the shuffles
+#pragma unroll
+      for (int o = LPR / 2; o > 0; o >>= 1)
+#pragma unroll
+        for (int u = 0; u < kRows; ++u)
+          sc[u] += __shfl_xor_sync(0xffffffffu, sc[u], o);
+      if (gg >= g) continue;
+      // scores in the base-2 domain: exp(s - m) = exp2(s log2 e - m log2 e)
+      float m_new = m[gg];
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) {
+        sc[u] *= scale;
+        if (use_cap) sc[u] = cap * tanhf(sc[u] / cap);
+        sc[u] = valid[u] ? sc[u] * kLog2e : kNegInf;
+        m_new = fmaxf(m_new, sc[u]);
+      }
+      // the group's rows of the stage in one online-softmax step
+      const float corr = exp2f(m[gg] - m_new);
+      float pr[kRows], psum = 0.0f;
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) {
+        pr[u] = valid[u] ? exp2f(sc[u] - m_new) : 0.0f;
+        psum += pr[u];
+      }
+      l[gg] = l[gg] * corr + psum;
+#pragma unroll
+      for (int v = 0; v < NV; ++v)
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          float pv_sum = 0.0f;
+#pragma unroll
+          for (int u = 0; u < kRows; ++u) pv_sum += pr[u] * vx[u][v][e];
+          acc[gg][v][e] = acc[gg][v][e] * corr + pv_sum;
+        }
+      m[gg] = m_new;
+    }
+  }
+
+  // merge the row groups of the warp: a fixed butterfly (each pair's sums
+  // are commutative, so every group ends with the same bits)
+#pragma unroll
+  for (int gg = 0; gg < GM; ++gg) {
+#pragma unroll
+    for (int o = LPR; o < 32; o <<= 1) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[gg], o);
+      const float lx = __shfl_xor_sync(0xffffffffu, l[gg], o);
+      const float mn = fmaxf(m[gg], mo);
+      const float c1 = exp2f(m[gg] - mn), c2 = exp2f(mo - mn);
+      l[gg] = l[gg] * c1 + lx * c2;
+#pragma unroll
+      for (int v = 0; v < NV; ++v)
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          const float ao = __shfl_xor_sync(0xffffffffu, acc[gg][v][e], o);
+          acc[gg][v][e] = acc[gg][v][e] * c1 + ao * c2;
+        }
+      m[gg] = mn;
+    }
+  }
+
+  const size_t part0 = ((size_t)b * hkv + h) * plan.n_splits;
+  if (grp == 0) {
+#pragma unroll
+    for (int gg = 0; gg < GM; ++gg) {
+      if (gg >= g) break;
+      const size_t pi = (part0 + sp) * g + gg;
+      if (used > 1 && li == 0) {
+        part_ml[2 * pi] = m[gg];
+        part_ml[2 * pi + 1] = l[gg];
+      }
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const int vi = v * LPR + li;
+        if (vi >= nvr) continue;
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          const int d = vi * kVec + e;
+          if (used > 1)
+            part_acc[pi * hd + d] = acc[gg][v][e];
+          else
+            ctx[(((size_t)b * hkv + h) * g + gg) * hd + d] =
+                acc[gg][v][e] / fmaxf(l[gg], 1e-30f);
+        }
       }
     }
   }
-
-  // merge the warps: stage (m, l, acc) per warp in shared memory
-  float* w_m = smem;                       // kWarps * g
-  float* w_l = w_m + kWarps * g;           // kWarps * g
-  float* w_acc = w_l + kWarps * g;         // kWarps * g * hd
-#pragma unroll
-  for (int gg = 0; gg < kMaxG; ++gg) {
-    if (gg >= g) break;
-    if (lane == 0) {
-      w_m[warp * g + gg] = m[gg];
-      w_l[warp * g + gg] = l[gg];
-    }
-#pragma unroll
-    for (int t = 0; t < DPL; ++t) {
-      const int d = lane * DPL + t;
-      if (d < hd) w_acc[(warp * g + gg) * hd + d] = acc[gg][t];
-    }
-  }
-  __syncthreads();
-  const size_t part = ((size_t)b * hkv + h) * n_splits + sp;
-  for (int idx = tid; idx < g * hd; idx += kThreads) {
-    const int gg = idx / hd, d = idx - gg * hd;
-    float mx = kNegInf;
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, w_m[w * g + gg]);
-    float lsum = 0.0f, a = 0.0f;
-    for (int w = 0; w < kWarps; ++w) {
-      const float c = expf(w_m[w * g + gg] - mx);  // 0 for an idle warp
-      lsum += c * w_l[w * g + gg];
-      a += c * w_acc[(w * g + gg) * hd + d];
-    }
-    part_acc[part * g * hd + idx] = a;
-    if (d == 0) {
-      part_m[part * g + gg] = mx;
-      part_l[part * g + gg] = lsum;
-    }
-  }
 }
 
-__global__ void __launch_bounds__(kThreads)
-paged_combine_kernel(const int* __restrict__ pos,
-                     const float* __restrict__ part_m,
-                     const float* __restrict__ part_l,
-                     const float* __restrict__ part_acc,
-                     float* __restrict__ ctx, int hkv, int g, int hd, int bs,
-                     int max_blocks, int n_splits) {
+// the combine pass: one CTA per (kv head, slot), one thread per output
+// (query row, dimension), merges the splits of a slot that used more than
+// one, in split order (the same bits on every run), in one pass with a
+// running max: no load waits on another
+__global__ void paged_combine_kernel(const int* __restrict__ pos,
+                                     const float* __restrict__ part_ml,
+                                     const float* __restrict__ part_acc,
+                                     float* __restrict__ ctx, int hkv, int g,
+                                     int hd, int bs, int max_blocks,
+                                     Plan plan) {
   const int h = blockIdx.x, b = blockIdx.y;
   const int limit = min(pos[b] + 1, max_blocks * bs);
-  const int used = (limit + kSplitRows - 1) / kSplitRows;
-  const size_t part0 = ((size_t)b * hkv + h) * n_splits;
-  for (int idx = threadIdx.x; idx < g * hd; idx += kThreads) {
-    const int gg = idx / hd;
-    float mx = kNegInf;
-    for (int sp = 0; sp < used; ++sp)
-      mx = fmaxf(mx, part_m[(part0 + sp) * g + gg]);
-    float lsum = 0.0f, a = 0.0f;
-    for (int sp = 0; sp < used; ++sp) {
-      const float c = expf(part_m[(part0 + sp) * g + gg] - mx);
-      lsum += c * part_l[(part0 + sp) * g + gg];
-      a += c * part_acc[(part0 + sp) * g * hd + idx];
+  const int used = (limit + plan.split_rows - 1) / plan.split_rows;
+  if (used == 1) return;  // the split kernel wrote ctx itself
+  for (int idx = threadIdx.x; idx < g * hd; idx += blockDim.x) {
+    const int gg = idx / hd, d = idx - gg * hd;
+    const size_t p0 = ((size_t)b * hkv + h) * plan.n_splits * g + gg;
+    float mx = kNegInf, lsum = 0.0f, a = 0.0f;
+#pragma unroll 4
+    for (int s = 0; s < used; ++s) {
+      const size_t pi = p0 + (size_t)s * g;
+      const float ms = part_ml[2 * pi], ls = part_ml[2 * pi + 1];
+      const float as = part_acc[pi * hd + d];
+      const float mn = fmaxf(mx, ms);
+      const float c_old = exp2f(mx - mn), c_new = exp2f(ms - mn);
+      lsum = lsum * c_old + ls * c_new;
+      a = a * c_old + as * c_new;
+      mx = mn;
     }
-    ctx[(((size_t)b * hkv + h) * g) * hd + idx] = a / fmaxf(lsum, 1e-30f);
+    ctx[(((size_t)b * hkv + h) * g + gg) * hd + d] = a / fmaxf(lsum, 1e-30f);
   }
 }
 
-template <typename T, int DPL>
+template <typename T, int LPR, int NV, int GM>
 int launch(const void* q, const void* kn, const void* vn, void* pk, void* pv,
            const void* bt, const void* pos, const void* act, void* scratch,
-           void* ctx, int b, int hkv, int g, int hd, int bs, int max_blocks,
-           float scale, float cap, int use_cap, cudaStream_t stream) {
-  const int n_splits = (max_blocks * bs + kSplitRows - 1) / kSplitRows;
-  float* part_m = (float*)scratch;
-  float* part_l = part_m + (size_t)b * hkv * n_splits * g;
-  float* part_acc = part_l + (size_t)b * hkv * n_splits * g;
-  // at most kWarps * kMaxG * (256 + 2) floats = 33 KB: under the 48 KB
-  // that needs no opt-in
-  const size_t smem = sizeof(float) * kWarps * g * (hd + 2);
-  paged_split_kernel<T, DPL><<<dim3(hkv, b, n_splits), kThreads, smem,
-                               stream>>>(
+           void* ctx, int b, int hkv, int g, int hd, int bs,
+           int max_blocks, const Plan& plan, float scale, float cap,
+           int use_cap, cudaStream_t stream) {
+  const size_t smem =
+      plan.ring_bytes + sizeof(int64_t) * plan.split_rows;
+  auto kern = paged_kernel<T, LPR, NV, GM>;
+  static size_t smem_set = 48 * 1024;  // raised once per instantiation
+  if (smem > smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = smem;
+  }
+  float* part_ml = (float*)scratch;
+  float* part_acc = part_ml + 2 * (size_t)b * hkv * plan.n_splits * g;
+  dim3 grid(hkv / plan.heads, b, plan.n_splits);
+  kern<<<grid, plan.heads * 32, smem, stream>>>(
       (const float*)q, (const T*)kn, (const T*)vn, (T*)pk, (T*)pv,
-      (const int*)bt, (const int*)pos, (const int*)act, part_m, part_l,
-      part_acc, hkv, g, hd, bs, max_blocks, n_splits, scale, cap, use_cap);
+      (const int*)bt, (const int*)pos, (const int*)act, part_ml, part_acc,
+      (float*)ctx, hkv, g, hd, bs, max_blocks, plan, scale, cap, use_cap);
   cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  paged_combine_kernel<<<dim3(hkv, b), kThreads, 0, stream>>>(
-      (const int*)pos, part_m, part_l, part_acc, (float*)ctx, hkv, g, hd, bs,
-      max_blocks, n_splits);
+  if (e != cudaSuccess || plan.n_splits == 1) return (int)e;
+  const int threads = g * hd < 256 ? (g * hd + 31) / 32 * 32 : 256;
+  paged_combine_kernel<<<dim3(hkv, b), threads, 0, stream>>>(
+      (const int*)pos, part_ml, part_acc, (float*)ctx, hkv, g, hd, bs,
+      max_blocks, plan);
   return (int)cudaGetLastError();
 }
 
+template <typename T, int LPR, int NV>
+int launch_g(int gm, const void* q, const void* kn, const void* vn, void* pk,
+             void* pv, const void* bt, const void* pos, const void* act,
+             void* scratch, void* ctx, int b, int hkv, int g,
+             int hd, int bs, int max_blocks, const Plan& plan, float scale,
+             float cap, int use_cap, cudaStream_t s) {
+#define PA_LAUNCH(GM)                                                        \
+  return launch<T, LPR, NV, GM>(q, kn, vn, pk, pv, bt, pos, act, scratch,    \
+                                ctx, b, hkv, g, hd, bs, max_blocks, plan,    \
+                                scale, cap, use_cap, s)
+  switch (gm) {
+    case 1: PA_LAUNCH(1);
+    case 2: PA_LAUNCH(2);
+    case 4: PA_LAUNCH(4);
+    case 8: PA_LAUNCH(8);
+  }
+#undef PA_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename T>
-int launch_dpl(const void* q, const void* kn, const void* vn, void* pk,
-               void* pv, const void* bt, const void* pos, const void* act,
-               void* scratch, void* ctx, int b, int hkv, int g, int hd, int bs,
-               int max_blocks, float scale, float cap, int use_cap,
-               cudaStream_t s) {
-  if (hd <= 32)
-    return launch<T, 1>(q, kn, vn, pk, pv, bt, pos, act, scratch, ctx, b, hkv,
-                        g, hd, bs, max_blocks, scale, cap, use_cap, s);
-  if (hd <= 64)
-    return launch<T, 2>(q, kn, vn, pk, pv, bt, pos, act, scratch, ctx, b, hkv,
-                        g, hd, bs, max_blocks, scale, cap, use_cap, s);
-  if (hd <= 128)
-    return launch<T, 4>(q, kn, vn, pk, pv, bt, pos, act, scratch, ctx, b, hkv,
-                        g, hd, bs, max_blocks, scale, cap, use_cap, s);
-  return launch<T, 8>(q, kn, vn, pk, pv, bt, pos, act, scratch, ctx, b, hkv,
-                      g, hd, bs, max_blocks, scale, cap, use_cap, s);
+int launch_t(int lpr, int nv, int gm, const void* q, const void* kn,
+             const void* vn, void* pk, void* pv, const void* bt,
+             const void* pos, const void* act, void* scratch, void* ctx,
+             int b, int hkv, int g, int hd, int bs, int max_blocks,
+             const Plan& plan, float scale, float cap, int use_cap,
+             cudaStream_t s) {
+#define PA_LAUNCH(LPR, NV)                                                    \
+  return launch_g<T, LPR, NV>(gm, q, kn, vn, pk, pv, bt, pos, act, scratch,   \
+                              ctx, b, hkv, g, hd, bs, max_blocks, plan,      \
+                              scale, cap, use_cap, s)
+  if (nv == 2) {
+    if (lpr == 32) PA_LAUNCH(32, 2);
+    return (int)cudaErrorInvalidValue;
+  }
+  switch (lpr) {
+    case 1: PA_LAUNCH(1, 1);
+    case 2: PA_LAUNCH(2, 1);
+    case 4: PA_LAUNCH(4, 1);
+    case 8: PA_LAUNCH(8, 1);
+    case 16: PA_LAUNCH(16, 1);
+    case 32: PA_LAUNCH(32, 1);
+  }
+#undef PA_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// scratch: 2 * B * Hkv * n_splits * G + B * Hkv * n_splits * G * hd floats,
-// n_splits = ceil(max_blocks * bs / paged_attention_split_rows())
-extern "C" int paged_attention_split_rows() { return kSplitRows; }
-
-extern "C" int paged_attention_decode(const void* q, const void* kn,
-                                      const void* vn, void* pk, void* pv,
-                                      const void* bt, const void* pos,
-                                      const void* act, void* scratch,
-                                      void* ctx, int b, int hkv, int g, int hd,
-                                      int bs, int max_blocks, int dtype,
-                                      float scale, float cap, int use_cap,
-                                      void* stream) {
+// The plan (heads per CTA, stage rows, split rows, splits, lanes per row,
+// vectors per lane, instantiated query rows) comes from
+// paged_attention.plan_split.  scratch: 2 * B * Hkv * n_splits * G +
+// B * Hkv * n_splits * G * hd floats (unused with one split).
+extern "C" int paged_attention_decode(
+    const void* q, const void* kn, const void* vn, void* pk, void* pv,
+    const void* bt, const void* pos, const void* act, void* scratch,
+    void* ctx, int b, int hkv, int g, int hd, int bs, int max_blocks,
+    int dtype, int heads, int stage_rows, int split_rows,
+    int n_splits, int lpr, int nv, int gm, float scale, float cap,
+    int use_cap, void* stream) {
   if (b == 0) return 0;
-  if (g < 1 || g > kMaxG || hd < 1 || hd > 256 || bs < 1 || max_blocks < 1)
+  const int elt = dtype == 0 ? 4 : 2;
+  if (g < 1 || g > gm || gm > kMaxG || hd < 1 || hd > 256 ||
+      (hd * elt) % 16 != 0 || lpr * nv * 16 < hd * elt || bs < 1 ||
+      max_blocks < 1 || heads < 1 || heads > kMaxHeads || hkv % heads != 0 ||
+      stage_rows != kRows * 32 / lpr || split_rows < stage_rows ||
+      (size_t)n_splits * split_rows < (size_t)max_blocks * bs)
     return (int)cudaErrorInvalidValue;
+  const size_t ring = (size_t)kStages * 2 * stage_rows * heads * hd * elt;
+  const Plan plan{heads, stage_rows, split_rows, n_splits, (int)ring};
   cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
     case 0:
-      return launch_dpl<float>(q, kn, vn, pk, pv, bt, pos, act, scratch, ctx,
-                               b, hkv, g, hd, bs, max_blocks, scale, cap,
-                               use_cap, s);
+      return launch_t<float>(lpr, nv, gm, q, kn, vn, pk, pv, bt, pos, act,
+                             scratch, ctx, b, hkv, g, hd, bs,
+                             max_blocks, plan, scale, cap, use_cap, s);
     case 1:
-      return launch_dpl<__nv_bfloat16>(q, kn, vn, pk, pv, bt, pos, act,
-                                       scratch, ctx, b, hkv, g, hd, bs,
-                                       max_blocks, scale, cap, use_cap, s);
+      return launch_t<__nv_bfloat16>(lpr, nv, gm, q, kn, vn, pk, pv, bt, pos,
+                                     act, scratch, ctx, b, hkv, g,
+                                     hd, bs, max_blocks, plan, scale, cap,
+                                     use_cap, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -17,11 +17,19 @@ is kept for the plain path and for tests; the CUDA kernel does not use it.
 replaces ``repro/kernels/imc_mvm.py::_analytic_kernel``) or raise.  Its noise
 is the counter-hash normal at global ``(b, m)`` sites, as in the plain
 version.
+
+``imc_analytic_codes_matmul`` is the analytic matmul of integer codes of at
+most 8 bits, ``ADC_MPC((x_codes @ w_codes) / sigma_yo + sigma_out z)``: CPU
+tensors take the plain version ``ref.imc_analytic_ref(x_codes / sigma_yo,
+w_codes)``; CUDA tensors launch ``csrc/analytic_int8.cu``, the exact code
+product on the int8 tensor cores with the division by ``sigma_yo`` in the
+epilogue, or raise.  ``int8_route_fits`` says which codes it takes;
+``ops.imc_matmul`` sends wider codes to ``imc_analytic_matmul``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -159,3 +167,133 @@ def imc_analytic_matmul(x, w_codes, spec: AnalyticSpec,
     if x.device.type != "cuda":
         raise ValueError(f"no analytic kernel for device {x.device}")
     return analytic_cuda(x, w_codes, spec, seed=seed)
+
+
+# ---------------------------------------------------------------------------
+# the codes route: 8-bit codes on the int8 tensor cores
+# ---------------------------------------------------------------------------
+
+INT32_MAX = 2**31 - 1
+
+
+def int8_route_fits(bx: int, bw: int, x_signed: bool, k: int) -> bool:
+    """Whether ``bx``-bit activation codes (signed or not) and ``bw``-bit
+    signed weight codes fit the int8 kernel: one byte each, and a K-term sum
+    of the largest products inside int32 (so the sums are exact)."""
+    if not (1 <= bx <= 8 and 1 <= bw <= 8):
+        return False
+    x_max = 2 ** (bx - 1) if x_signed else 2**bx - 1
+    return k * x_max * 2 ** (bw - 1) <= INT32_MAX
+
+
+def _check_codes_route(bx: int, bw: int, x_signed: bool, k: int) -> None:
+    if not (1 <= bx <= 8 and 1 <= bw <= 8):
+        raise ValueError(f"bx={bx}, bw={bw}: the int8 route takes codes of "
+                         "at most 8 bits")
+    if not int8_route_fits(bx, bw, x_signed, k):
+        raise ValueError(f"K={k}: a sum of {k} products of {bx}- and "
+                         f"{bw}-bit codes may overflow int32")
+
+
+def int8_tile(b: int, m: int, sms: int = build.SMS) -> int:
+    """N of the int8 kernel's 64 x N output tiles: 128 where that still
+    gives one CTA per SM, else 64."""
+    return 128 if -(-b // 64) * -(-m // 128) >= sms else 64
+
+
+def analytic_int8_cuda(x8, w8, sigma_yo, spec: AnalyticSpec,
+                       seed: Optional[int] = None):
+    """Launch the int8 analytic kernel on ``x8`` (B, K) uint8 or int8 codes
+    and ``w8`` (M, K) int8 codes (K-major), with ``sigma_yo`` a one-element
+    float32 tensor on the card; returns (B, M) f32 in sigma_yo units."""
+    dev = x8.device
+    if dev.type != "cuda" or w8.device != dev or sigma_yo.device != dev:
+        raise ValueError("analytic_int8_cuda needs its operands on one CUDA "
+                         f"device, got {x8.device}, {w8.device} and "
+                         f"{sigma_yo.device}")
+    if x8.dtype not in (torch.uint8, torch.int8) or w8.dtype != torch.int8:
+        raise TypeError(f"codes must be uint8/int8 and int8, got {x8.dtype} "
+                        f"and {w8.dtype}")
+    if sigma_yo.dtype != torch.float32 or sigma_yo.numel() != 1:
+        raise ValueError("sigma_yo must be one float32")
+    if x8.dim() != 2 or w8.dim() != 2 or x8.shape[1] != w8.shape[1]:
+        raise ValueError(f"operands (B, K) and (M, K) expected, got "
+                         f"{tuple(x8.shape)} and {tuple(w8.shape)}")
+    b_sz, k = x8.shape
+    m = w8.shape[0]
+    if not int8_route_fits(8, 8, x8.dtype == torch.int8, k):
+        raise ValueError(f"K={k}: a sum of {k} products of 8-bit codes may "
+                         "overflow int32")
+    pad = -k % 16  # 16-byte rows for the 16-byte copies; zero codes add 0
+    if pad:
+        x8 = torch.nn.functional.pad(x8, (0, pad))
+        w8 = torch.nn.functional.pad(w8, (0, pad))
+    x8, w8 = x8.contiguous(), w8.contiguous()
+    # the MMA kernel writes its int32 sums here, the epilogue pass turns
+    # them into the float outputs in place
+    out = torch.empty((b_sz, m), dtype=torch.float32, device=dev)
+    has_noise = seed is not None and spec.sigma_out > 0.0
+    half = 2.0 ** (spec.b_adc - 1)
+    lib = build.library("analytic_int8")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.imc_analytic_int8_matmul(
+        x8.data_ptr(), w8.data_ptr(), sigma_yo.data_ptr(), out.data_ptr(),
+        b_sz, k + pad, m, int(x8.dtype == torch.uint8), int8_tile(b_sz, m),
+        int(has_noise), ctypes.c_uint32(int(seed or 0) & 0xFFFFFFFF),
+        ctypes.c_float(spec.sigma_out), int(spec.apply_adc),
+        ctypes.c_float(2.0 * spec.y_clip / 2.0**spec.b_adc),
+        ctypes.c_float(-half), ctypes.c_float(half - 1), stream)
+    if err != 0:
+        raise RuntimeError("analytic int8 kernel launch failed: "
+                           f"{build.error_string('analytic_int8', err)}")
+    analytic_int8_cuda.launches += 1
+    return out
+
+
+analytic_int8_cuda.launches = 0
+
+
+def _assert_codes_in_range(codes, bits: int, signed: bool, name: str):
+    """Raise where a code lies outside its ``bits``-bit range: at once on
+    the CPU, as a device-side assert on the card (no host sync; the error
+    surfaces at the next synchronisation and leaves the CUDA context
+    unusable, as any device-side assert does)."""
+    if codes.numel() == 0:
+        return
+    lo, hi = ((-(2 ** (bits - 1)), 2 ** (bits - 1) - 1) if signed
+              else (0, 2**bits - 1))
+    mn, mx = torch.aminmax(codes)
+    torch._assert_async((mn >= lo) & (mx <= hi),
+                        f"{name} codes outside [{lo}, {hi}]")
+
+
+def imc_analytic_codes_matmul(x_codes, w_codes, sigma_yo, spec: AnalyticSpec,
+                              *, bx: int, bw: int, x_signed: bool,
+                              seed: Optional[int] = None):
+    """Analytic-mode IMC matmul of integer codes, ``ADC_MPC((x_codes @
+    w_codes) / sigma_yo + sigma_out * z)``; returns (B, M) f32 in sigma_yo
+    units.  ``x_codes`` (B, K) are ``bx``-bit codes (unsigned unless
+    ``x_signed``), ``w_codes`` (K, M) ``bw``-bit signed codes, both in any
+    dtype that holds them exactly; ``sigma_yo`` a positive float or
+    one-element tensor.  Raises unless the widths fit the int8 kernel
+    (:func:`int8_route_fits`), and where a code lies outside its width
+    (:func:`_assert_codes_in_range`), on every device.  CPU tensors take
+    the plain version, CUDA tensors the kernel."""
+    k = x_codes.shape[-1]
+    _check_codes_route(bx, bw, x_signed, k)
+    _assert_codes_in_range(x_codes, bx, x_signed, "activation")
+    _assert_codes_in_range(w_codes, bw, True, "weight")
+    if x_codes.device.type == "cpu":
+        return ref.imc_analytic_ref(
+            ref.true_div(x_codes.to(torch.float32), sigma_yo),
+            w_codes.to(torch.float32), spec, seed=seed)
+    dev = x_codes.device
+    if dev.type != "cuda":
+        raise ValueError(f"no analytic int8 kernel for device {dev}")
+    x8 = x_codes.to(torch.int8 if x_signed else torch.uint8)
+    # (K, M) -> (M, K) int8 in one pass: the kernel takes both operands
+    # K-major
+    w8 = torch.empty((w_codes.shape[1], k), dtype=torch.int8, device=dev)
+    w8.copy_(w_codes.t())
+    sig = torch.as_tensor(sigma_yo, dtype=torch.float32, device=dev)
+    return analytic_int8_cuda(x8, w8, sig.reshape(1), spec, seed=seed)

@@ -3,7 +3,8 @@
 ``imc_matmul`` quantizes activations and weights (paper SSII), derives the
 noise constants from the core analytics, and runs the integer-code matmul:
 the bit-serial kernel (``imc_bitserial``), the analytic folded-noise kernel
-(``imc_analytic``) or a plain code product (``fakequant``).  On the card the
+(``imc_analytic``: the int8 code product for codes of at most 8 bits, the
+float32 kernel for wider ones) or a plain code product (``fakequant``).  On the card the
 two IMC modes always launch their CUDA kernels; on the CPU their plain
 versions run.  (The JAX serve path reaches the plain oracles only because
 interpret-mode Pallas is slow off the TPU; the math is the same.)
@@ -134,8 +135,16 @@ def imc_matmul(x, w, cfg: IMCMatmulConfig, seed: Optional[int] = None,
         spec = AnalyticSpec(b_adc=cfg.b_adc, sigma_out=sigma_out,
                             y_clip=cfg.y_clip_sigmas, apply_adc=True)
         noise_seed = seed if sigma_out > 0.0 else None
-        y = imc_mvm.imc_analytic_matmul(true_div(xc, sigma_yo), wc, spec,
-                                        seed=noise_seed)
+        # codes of at most 8 bits take the exact int8 code product; wider
+        # ones (assign_precisions allows 16 bits) the float32 kernel
+        if imc_mvm.int8_route_fits(cfg.bx, cfg.bw, cfg.x_signed,
+                                   wc.shape[0]):
+            y = imc_mvm.imc_analytic_codes_matmul(
+                xc, wc, sigma_yo, spec, bx=cfg.bx, bw=cfg.bw,
+                x_signed=cfg.x_signed, seed=noise_seed)
+        else:
+            y = imc_mvm.imc_analytic_matmul(true_div(xc, sigma_yo), wc, spec,
+                                            seed=noise_seed)
         return y * sigma_yo * (dx * dw)
 
     if cfg.mode == "imc_bitserial":

@@ -25,7 +25,9 @@ where the TPU kernel wrote whole blocks back; the pools agree outside block 0.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import dataclasses
+import functools
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -90,6 +92,89 @@ def decode_plain(q, k_new, v_new, pk, pv, bt, pos_b, active=None, *,
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+# the CUDA kernel's plan: at most 8 kv heads per CTA (one warp each), and
+# enough splits of each slot's rows for about two CTAs per SM of an H100
+MAX_HEADS_PER_CTA = 8
+STAGES = 3  # kStages of csrc/paged_attention.cu
+ROWS_PER_GROUP = 4  # kRows of csrc/paged_attention.cu
+MIN_SPLIT_ROWS = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """How ``csrc/paged_attention.cu`` covers a call: a grid of (head
+    groups, slots, ``n_splits``) CTAs, each over ``heads`` kv heads and up to
+    ``split_rows`` logical rows, streamed ``stage_rows`` at a time; ``lpr``
+    lanes hold a row as ``nv`` 16-byte vectors each; ``gm`` query rows are
+    instantiated per head."""
+
+    heads: int
+    head_groups: int
+    stage_rows: int
+    split_rows: int
+    n_splits: int
+    lpr: int
+    nv: int
+    gm: int
+    scratch_floats: int
+    smem_bytes: int
+
+    @functools.cached_property
+    def args(self) -> Tuple[int, ...]:
+        """The plan's arguments of the C entry point, in its order."""
+        return (self.heads, self.stage_rows, self.split_rows, self.n_splits,
+                self.lpr, self.nv, self.gm)
+
+    def ranges(self, limit: int) -> List[Tuple[int, int]]:
+        """The [lo, hi) logical rows each split reads of a slot whose valid
+        rows are [0, limit), as the kernel computes them; splits that get no
+        row are left out (their CTAs return at once)."""
+        out = []
+        for sp in range(self.n_splits):
+            lo = sp * self.split_rows
+            hi = min(lo + self.split_rows, limit)
+            if lo < hi:
+                out.append((lo, hi))
+        return out
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+@functools.lru_cache(maxsize=256)
+def plan_split(b: int, hkv: int, g: int, hd: int, bs: int, max_blocks: int,
+               elt: int, sms: int = build.SMS) -> SplitPlan:
+    """The kernel's plan from the shapes alone (no position is read on the
+    host): the largest divisor of Hkv up to 8 as heads per CTA; stage rows
+    four per row group of a warp (128 / lpr: at most 32 KB of K and V for 8
+    heads, 64 KB for hd * elt = 1024 bytes, where nv = 2);
+    split rows, a multiple of the stage rows and at least MIN_SPLIT_ROWS,
+    such that a slot at full capacity spans about ``2 * sms / (B * head
+    groups)`` splits.  Raises for shapes the kernel does not take."""
+    if not 1 <= g <= 8 or not 1 <= hd <= 256 or (hd * elt) % 16:
+        raise ValueError(f"G={g}, hd={hd}: the kernel takes G <= 8 and "
+                         "hd <= 256 with 16-byte rows per head")
+    heads = max(d for d in range(1, min(hkv, MAX_HEADS_PER_CTA) + 1)
+                if hkv % d == 0)
+    groups = hkv // heads
+    row_bytes = heads * hd * elt
+    vectors = hd * elt // 16
+    lpr = min(32, _pow2_at_least(vectors))
+    nv = -(-vectors // lpr)
+    stage_rows = ROWS_PER_GROUP * 32 // lpr
+    cap = max_blocks * bs
+    want = -(-2 * sms // (b * groups))
+    split_rows = max(-(-cap // want), MIN_SPLIT_ROWS)
+    split_rows = -(-split_rows // stage_rows) * stage_rows
+    n_splits = -(-cap // split_rows)
+    scratch = b * hkv * n_splits * g * (hd + 2) if n_splits > 1 else 0
+    smem = STAGES * 2 * stage_rows * row_bytes + 8 * split_rows
+    return SplitPlan(heads=heads, head_groups=groups, stage_rows=stage_rows,
+                     split_rows=split_rows, n_splits=n_splits, lpr=lpr,
+                     nv=nv, gm=_pow2_at_least(g), scratch_floats=scratch,
+                     smem_bytes=smem)
+
 
 def _check(t: torch.Tensor, name: str, shape, dtype, device):
     if t.device != device:
@@ -105,11 +190,12 @@ def _check(t: torch.Tensor, name: str, shape, dtype, device):
 
 def paged_attention_cuda(q, k_new, v_new, pk, pv, bt, pos_b, active, *,
                          scale: float, softcap: Optional[float] = None):
-    """Launch the CUDA paged-attention kernel: a split pass (one CTA per
-    kv head, slot and 128 logical rows) and a combine pass, from one C
-    entry point.  ``q`` is f32 ``(B, Hkv, G, hd)``; ``k_new``/``v_new`` are in
-    the pool dtype; ``bt``/``pos_b``/``active`` are int32.  Updates the pools
-    in place and returns ``(ctx f32, pk, pv)``."""
+    """Launch the CUDA paged-attention kernel: one CTA per (head group, slot,
+    split of logical rows), planned by :func:`plan_split`, and a combine
+    pass over the slots whose rows span several splits.  ``q`` is f32 ``(B, Hkv, G, hd)``;
+    ``k_new``/``v_new`` are in the pool dtype; ``bt``/``pos_b``/``active``
+    are int32.  Updates the pools in place and returns ``(ctx f32, pk,
+    pv)``."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"paged_attention_cuda needs CUDA tensors, got {dev}")
@@ -118,8 +204,6 @@ def paged_attention_cuda(q, k_new, v_new, pk, pv, bt, pos_b, active, *,
     max_blocks = bt.shape[1]
     if pk.dtype not in _DTYPE_CODE:
         raise TypeError(f"unsupported pool dtype {pk.dtype}")
-    if g > 8 or hd > 256:
-        raise ValueError(f"G={g}, hd={hd}: the kernel takes G <= 8, hd <= 256")
     _check(q, "q", (b, hkv, g, hd), torch.float32, dev)
     _check(k_new, "k_new", (b, hkv, hd), pk.dtype, dev)
     _check(v_new, "v_new", (b, hkv, hd), pk.dtype, dev)
@@ -128,18 +212,22 @@ def paged_attention_cuda(q, k_new, v_new, pk, pv, bt, pos_b, active, *,
     _check(bt, "bt", (b, max_blocks), torch.int32, dev)
     _check(pos_b, "pos_b", (b,), torch.int32, dev)
     _check(active, "active", (b,), torch.int32, dev)
-    lib = build.library("paged_attention")
-    split = lib.paged_attention_split_rows()
-    n_splits = -(-max_blocks * bs // split)
-    scratch = torch.empty((b * hkv * n_splits * g * (hd + 2),),
+    # the kernel reads these as 16-byte vectors (q as scalars)
+    for name, t in (("k_new", k_new), ("v_new", v_new), ("pk", pk),
+                    ("pv", pv)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    plan = plan_split(b, hkv, g, hd, bs, max_blocks, pk.element_size())
+    scratch = torch.empty((max(plan.scratch_floats, 1),),
                           dtype=torch.float32, device=dev)
     ctx = torch.empty((b, hkv, g, hd), dtype=torch.float32, device=dev)
+    lib = build.library("paged_attention")
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.paged_attention_decode(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), pk.data_ptr(),
         pv.data_ptr(), bt.data_ptr(), pos_b.data_ptr(), active.data_ptr(),
         scratch.data_ptr(), ctx.data_ptr(), b, hkv, g, hd, bs, max_blocks,
-        _DTYPE_CODE[pk.dtype], ctypes.c_float(scale),
+        _DTYPE_CODE[pk.dtype], *plan.args, ctypes.c_float(scale),
         ctypes.c_float(0.0 if softcap is None else softcap),
         int(softcap is not None), stream)
     if err != 0:

@@ -11,16 +11,18 @@ Tolerances: paged attention ctx allclose(rtol=1e-5, atol=1e-5) (the kernel
 sums in another order), pools bit-exact outside garbage block 0; the
 bit-serial kernel bit-exact, with and without noise and gain (it rounds every
 step as the plain version does, and both take gain-weighted plane sums in
-float64); the analytic kernel within one ADC step on fewer than 0.1% of the
-outputs with the ADC (its K order differs from cuBLAS), allclose(rtol 1e-5,
-atol 1e-5 * max|y|) without it, and its noise within 3 ulp of the plain
-version's draw.
+float64); both analytic kernels (the float32 one and the int8 codes route)
+within one ADC step on fewer than 0.1% of the outputs with the ADC (the
+float32 kernel's K order differs from cuBLAS; the int8 kernel's exact code
+product is divided by sigma_yo once, where the plain version divides every
+code first), allclose(rtol 1e-5, atol 1e-5 * max|y|) without it, and their
+noise within 3 ulp of the plain version's draw.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import build, imc_mvm, paged_attention as pa, ref
+from repro_torch.kernels import build, imc_mvm, ops, paged_attention as pa, ref
 
 pytestmark = pytest.mark.cuda
 
@@ -74,7 +76,8 @@ def test_paged_attention_kernel_matches_plain(dev, dtype, g, hd, softcap):
 
 
 def test_paged_attention_long_context(dev):
-    """Contexts spanning several 128-row splits, one row per block edge."""
+    """Contexts spanning many splits (the plan gives 32-row splits here),
+    one row per block edge."""
     q, kn, vn, pk, pv, bt, pos = _paged_state(
         dev, torch.bfloat16, b=6, mb=80, g=1, hd=64,
         pos=(0, 127, 128, 255, 639, 640))
@@ -194,3 +197,183 @@ def test_analytic_unbuildable_source_raises(dev, tmp_path, monkeypatch):
     xs, wc = _analytic_operands(dev, 4, 64, 8)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         imc_mvm.imc_analytic_matmul(xs, wc, ref.AnalyticSpec())
+
+
+def _phase3_paged(dev):
+    """chip_smoke.py phase 3's shape: 8 slots, musicgen-medium heads (Hkv
+    24, G 1, hd 64), bf16 pools of 8-row blocks, contexts 18..1040, one
+    inactive and one overrun row."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b, hkv, hd, bs, mb = 8, 24, 64, 8, 130
+    nb = b * mb + 1
+    bf = torch.bfloat16
+    q = torch.randn((b, hkv, 1, hd), generator=gen, device=dev)
+    kn = torch.randn((b, hkv, hd), generator=gen, device=dev).to(bf)
+    vn = torch.randn((b, hkv, hd), generator=gen, device=dev).to(bf)
+    pk = torch.randn((nb, bs, hkv, hd), generator=gen, device=dev).to(bf)
+    pv = torch.randn((nb, bs, hkv, hd), generator=gen, device=dev).to(bf)
+    perm = torch.randperm(nb - 1, generator=gen, device=dev) + 1
+    bt = perm[: b * mb].reshape(b, mb).to(torch.int32)
+    pos = torch.tensor([17, 130, 511, 640, 777, 900, 1023, mb * bs],
+                       dtype=torch.int32, device=dev)
+    active = torch.ones(b, dtype=torch.bool, device=dev)
+    active[6] = False
+    return q, kn, vn, pk, pv, bt, pos, active
+
+
+def test_paged_attention_phase3_shape_repeats_bit_for_bit(dev):
+    q, kn, vn, pk, pv, bt, pos, active = _phase3_paged(dev)
+    ctx_k, pk_k, pv_k = pa.paged_attention_decode(
+        q, kn, vn, pk.clone(), pv.clone(), bt, pos, active, scale=0.125)
+    ctx_p, pk_p, pv_p = pa.decode_plain(q, kn, vn, pk.clone(), pv.clone(), bt,
+                                        pos, active, scale=0.125)
+    torch.testing.assert_close(ctx_k, ctx_p, rtol=1e-5, atol=1e-5)
+    assert torch.equal(pk_k[1:], pk_p[1:]) and torch.equal(pv_k[1:], pv_p[1:])
+    for _ in range(3):  # the splits' merge order is fixed
+        again, _, _ = pa.paged_attention_decode(
+            q, kn, vn, pk.clone(), pv.clone(), bt, pos, active, scale=0.125)
+        assert torch.equal(again, ctx_k)
+
+
+def _int8_operands(dev, b, k, m, bits, x_signed, seed=5):
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.normal(size=(b, k)), dtype=torch.float32, device=dev)
+    if not x_signed:
+        x = x.abs()
+    w = torch.tensor(rng.uniform(-1, 1, size=(k, m)), dtype=torch.float32,
+                     device=dev)
+    xc, _ = ref.quantize_codes(x, bits, x_signed, x.abs().max())
+    wc, _ = ref.quantize_codes(w, bits, True, w.abs().max())
+    return xc, wc, (xc[:8] @ wc).std(unbiased=False) + 1e-9
+
+
+@pytest.mark.parametrize("case", [
+    (1, 1536, 1536, 8, False), (8, 1536, 6144, 8, False),
+    (8, 6144, 1536, 6, True), (16, 1536, 2048, 8, True),
+    (17, 1536, 1536, 6, False), (512, 1536, 6144, 8, False),
+    (512, 6144, 1536, 6, True), (8, 720, 1000, 8, False),
+    (40, 700, 1000, 8, True), (3, 100, 7, 6, False),
+])
+def test_int8_analytic_kernel_matches_plain(dev, case):
+    """The int8 codes route against its plain version: batches 1 to 512
+    (64-row tiles, zero rows past B), K = 1536 and 6144 and K
+    not a multiple of 32 (720) or of 16 (700, 100), M not a multiple of
+    the tile, unsigned and signed activation codes of 6 and 8 bits."""
+    assert not torch.backends.cuda.matmul.allow_tf32  # plain version in fp32
+    b, k, m, bits, xs = case
+    xc, wc, sig = _int8_operands(dev, b, k, m, bits, xs)
+    spec = ref.AnalyticSpec(b_adc=8, sigma_out=0.05, y_clip=4.0)
+    raw = ref.AnalyticSpec(b_adc=8, sigma_out=0.05, y_clip=4.0,
+                           apply_adc=False)
+    kw = dict(bx=bits, bw=bits, x_signed=xs)
+    before = imc_mvm.analytic_int8_cuda.launches
+    y_k = imc_mvm.imc_analytic_codes_matmul(xc, wc, sig, spec, seed=99, **kw)
+    r_k = imc_mvm.imc_analytic_codes_matmul(xc, wc, sig, raw, seed=99, **kw)
+    clean = imc_mvm.imc_analytic_codes_matmul(xc, wc, sig, raw, **kw)
+    xs_p = ref.true_div(xc, sig)
+    y_p = ref.imc_analytic_ref(xs_p, wc, spec, seed=99)
+    r_p = ref.imc_analytic_ref(xs_p, wc, raw, seed=99)
+    torch.cuda.synchronize()
+    assert imc_mvm.analytic_int8_cuda.launches == before + 3
+    d = (y_k - y_p).abs()
+    assert float(d.max()) <= 2 * spec.y_clip / 2**spec.b_adc + 1e-6
+    assert float((d > 1e-6).float().mean()) < 1e-3
+    torch.testing.assert_close(r_k, r_p, rtol=1e-5,
+                               atol=1e-5 * float(r_p.abs().max()))
+    z = spec.sigma_out * ref.analytic_output_noise(99, b, m, device=dev)
+    eps = torch.finfo(torch.float32).eps
+    assert bool(((r_k - clean - z).abs()
+                 <= 3 * eps * (z.abs() + r_k.abs())).all())
+
+
+@pytest.mark.parametrize("b", [8, 512])
+def test_int8_analytic_kernel_repeats_bit_for_bit(dev, b):
+    """The same bits on every run (exact int32 sums, a fixed epilogue),
+    different noise for another seed: B = 8 at K = 6144 (48 slices per CTA)
+    and B = 512."""
+    xc, wc, sig = _int8_operands(dev, b, 6144, 1536, 8, False, seed=6)
+    spec = ref.AnalyticSpec(b_adc=8, sigma_out=0.05, y_clip=4.0)
+    kw = dict(bx=8, bw=8, x_signed=False)
+    a = imc_mvm.imc_analytic_codes_matmul(xc, wc, sig, spec, seed=7, **kw)
+    for _ in range(3):
+        assert torch.equal(a, imc_mvm.imc_analytic_codes_matmul(
+            xc, wc, sig, spec, seed=7, **kw))
+    assert not torch.equal(a, imc_mvm.imc_analytic_codes_matmul(
+        xc, wc, sig, spec, seed=8, **kw))
+
+
+@pytest.mark.parametrize("bx,kernel", [(8, "int8"), (10, "float")])
+def test_imc_matmul_routes_analytic_by_width(dev, bx, kernel):
+    """``ops.imc_matmul`` launches the int8 kernel for 8-bit codes and the
+    float32 SIMT kernel for 10-bit ones, once each."""
+    rng = np.random.default_rng(8)
+    x = torch.tensor(np.abs(rng.normal(size=(64, 512))), dtype=torch.float32,
+                     device=dev)
+    w = torch.tensor(rng.uniform(-1, 1, size=(512, 256)),
+                     dtype=torch.float32, device=dev)
+    cfg = ops.IMCMatmulConfig(mode="imc_analytic", bx=bx, bw=8, b_adc=8,
+                              snr_a_db=25.0, x_signed=False)
+    i0, f0 = imc_mvm.analytic_int8_cuda.launches, imc_mvm.analytic_cuda.launches
+    y = ops.imc_matmul(x, w, cfg, seed=1)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all()
+    assert (imc_mvm.analytic_int8_cuda.launches - i0,
+            imc_mvm.analytic_cuda.launches - f0) == (
+                (1, 0) if kernel == "int8" else (0, 1))
+
+
+def test_int8_analytic_refuses_codes_outside_int8(dev):
+    spec = ref.AnalyticSpec()
+    xc, wc, sig = _int8_operands(dev, 4, 64, 8, 8, False)
+    before = imc_mvm.analytic_int8_cuda.launches
+    with pytest.raises(ValueError, match="at most 8 bits"):
+        imc_mvm.imc_analytic_codes_matmul(xc, wc, sig, spec, bx=9, bw=8,
+                                          x_signed=False)
+    k = 65794
+    with pytest.raises(ValueError, match="overflow int32"):
+        imc_mvm.imc_analytic_codes_matmul(
+            torch.zeros((1, k), device=dev), torch.zeros((k, 1), device=dev),
+            sig, spec, bx=8, bw=8, x_signed=False)
+    with pytest.raises(TypeError, match="uint8/int8"):
+        imc_mvm.analytic_int8_cuda(xc, wc.t().to(torch.int8), sig.reshape(1),
+                                   spec)
+    assert imc_mvm.analytic_int8_cuda.launches == before
+
+
+_OUT_OF_RANGE = """
+import torch
+from repro_torch.kernels import imc_mvm, ref
+spec = ref.AnalyticSpec(b_adc=8, sigma_out=0.05, y_clip=4.0)
+dev = torch.device("cuda")
+xc = torch.randint(0, 64, (8, 256), device=dev).float()
+wc = torch.randint(-64, 64, (256, 96), device=dev).float()
+kw = dict(bx=6, bw=7, x_signed=False)
+y = imc_mvm.imc_analytic_codes_matmul(xc, wc, 100.0, spec, **kw)
+torch.cuda.synchronize()
+print("in range: ok", bool(torch.isfinite(y).all()), flush=True)
+{corrupt}
+imc_mvm.imc_analytic_codes_matmul(xc, wc, 100.0, spec, **kw)
+torch.cuda.synchronize()
+print("out of range: no error", flush=True)
+"""
+
+
+@pytest.mark.parametrize("corrupt", ["xc[3, 7] = 64", "wc[5, 2] = -65"])
+def test_int8_analytic_asserts_on_a_code_outside_its_width(dev, corrupt):
+    """A code one past its width stops the card with a device-side assert
+    (no host sync on the call), where the in-range call before it ran.  In
+    a subprocess: a device-side assert leaves the CUDA context unusable."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    proc = subprocess.run(
+        [sys.executable, "-c", _OUT_OF_RANGE.format(corrupt=corrupt)],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert "in range: ok True" in proc.stdout, proc.stderr[-2000:]
+    assert "out of range: no error" not in proc.stdout
+    assert proc.returncode != 0
+    assert "assert" in proc.stderr.lower(), proc.stderr[-2000:]

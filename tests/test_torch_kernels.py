@@ -598,6 +598,219 @@ def test_write_routing_contract():
 
 
 # ---------------------------------------------------------------------------
+# the analytic codes route (int8 kernel on the card)
+# ---------------------------------------------------------------------------
+
+
+def _quantized(b, k, m, bx, bw, x_signed):
+    """Codes as ``ops.imc_matmul`` makes them, and its dynamic sigma_yo."""
+    rng = np.random.default_rng(b + k + m + bx)
+    x = rng.normal(size=(b, k)).astype(np.float32)
+    if not x_signed:
+        x = np.abs(x)
+    w = rng.normal(size=(k, m)).astype(np.float32)
+    xc, _ = t_ref.quantize_codes(torch.tensor(x), bx, x_signed,
+                                 torch.tensor(np.abs(x).max()))
+    wc, _ = t_ref.quantize_codes(torch.tensor(w), bw, True,
+                                 torch.tensor(np.abs(w).max()))
+    return xc, wc, (xc[:8] @ wc).std(unbiased=False) + 1e-9
+
+
+@pytest.mark.parametrize("case", [(8, 96, 40, 8, 8, False),
+                                  (16, 700, 33, 6, 6, True),
+                                  (5, 64, 8, 8, 8, True),
+                                  (24, 300, 40, 7, 7, False)])
+@pytest.mark.parametrize("seed", [None, 99])
+def test_codes_route_plain_matches_reference_bit_for_bit(case, seed):
+    """The codes route's plain version (what a CPU tensor takes) equals the
+    JAX Pallas kernel in interpret mode and the JAX oracle fed the same
+    codes over sigma_yo, bit for bit, with and without noise."""
+    b, k, m, bx, bw, xs = case
+    xc, wc, sig = _quantized(b, k, m, bx, bw, xs)
+    spec = t_ref.AnalyticSpec(b_adc=8, sigma_out=0.05, y_clip=4.0)
+    y_t = t_mvm.imc_analytic_codes_matmul(xc, wc, sig, spec, bx=bx, bw=bw,
+                                          x_signed=xs, seed=seed).numpy()
+    xs_j = jnp.asarray(t_ref.true_div(xc, sig).numpy())
+    spec_j = j_ref.AnalyticSpec(b_adc=8, sigma_out=0.05, y_clip=4.0)
+    y_o = j_ref.imc_analytic_ref(xs_j, jnp.asarray(wc.numpy()), spec_j,
+                                 seed=seed)
+    y_k = j_mvm.imc_analytic_matmul(xs_j, jnp.asarray(wc.numpy()), spec_j,
+                                    seed=seed, interpret=True)
+    np.testing.assert_array_equal(y_t, _np(y_o))
+    np.testing.assert_array_equal(y_t, _np(y_k))
+
+
+def test_int8_route_fits_by_width_and_k():
+    """8-bit codes fit while a K-term sum of the largest products stays in
+    int32: 255 * 128 * K for unsigned 8-bit activations, 128 * 128 * K for
+    signed ones; wider codes never fit."""
+    fits = t_mvm.int8_route_fits
+    assert fits(8, 8, False, 65793) and not fits(8, 8, False, 65794)
+    assert fits(8, 8, True, 131071) and not fits(8, 8, True, 131072)
+    assert fits(6, 6, False, 6144) and fits(1, 1, True, 1)
+    for bx, bw in ((9, 8), (8, 9), (10, 8), (16, 16), (0, 8)):
+        assert not fits(bx, bw, True, 16)
+
+
+def test_codes_route_raises_outside_int8():
+    spec = t_ref.AnalyticSpec()
+    xc, wc, sig = _quantized(2, 32, 4, 8, 8, False)
+    with pytest.raises(ValueError, match="at most 8 bits"):
+        t_mvm.imc_analytic_codes_matmul(xc, wc, sig, spec, bx=10, bw=8,
+                                        x_signed=False)
+    with pytest.raises(ValueError, match="at most 8 bits"):
+        t_mvm.imc_analytic_codes_matmul(xc, wc, sig, spec, bx=8, bw=9,
+                                        x_signed=False)
+    k = 65794
+    with pytest.raises(ValueError, match="overflow int32"):
+        t_mvm.imc_analytic_codes_matmul(torch.zeros(1, k), torch.zeros(k, 1),
+                                        1.0, spec, bx=8, bw=8, x_signed=False)
+    with pytest.raises(ValueError, match="CUDA"):
+        t_mvm.analytic_int8_cuda(torch.zeros(2, 32, dtype=torch.uint8),
+                                 torch.zeros(4, 32, dtype=torch.int8),
+                                 torch.ones(1), spec)
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="no analytic int8 kernel"):
+        t_mvm.imc_analytic_codes_matmul(torch.zeros(2, 8, device=meta),
+                                        torch.zeros(8, 3, device=meta), 1.0,
+                                        spec, bx=8, bw=8, x_signed=False)
+
+
+@pytest.mark.parametrize("bits,route", [((8, 8), "codes"), ((6, 6), "codes"),
+                                        ((10, 8), "float"),
+                                        ((8, 12), "float")])
+def test_imc_matmul_picks_the_analytic_route_by_width(monkeypatch, bits,
+                                                      route):
+    """``ops.imc_matmul`` sends codes of at most 8 bits to the codes route
+    and wider ones to the float32 kernel's; on the CPU both give the same
+    plain output, equal to the pre-route computation."""
+    calls = []
+    for name in ("imc_analytic_codes_matmul", "imc_analytic_matmul"):
+        fn = getattr(t_mvm, name)
+        monkeypatch.setattr(t_mvm, name, lambda *a, _fn=fn, _n=name, **k: (
+            calls.append(_n), _fn(*a, **k))[1])
+    rng = np.random.default_rng(21)
+    x = torch.tensor(np.abs(rng.normal(size=(12, 200))).astype(np.float32))
+    w = torch.tensor(rng.uniform(-1, 1, size=(200, 24)).astype(np.float32))
+    bx, bw = bits
+    cfg = t_ops.IMCMatmulConfig(mode="imc_analytic", bx=bx, bw=bw, b_adc=8,
+                                snr_a_db=25.0, x_signed=False)
+    y = t_ops.imc_matmul(x, w, cfg, seed=3)
+    assert calls == ["imc_analytic_codes_matmul" if route == "codes"
+                     else "imc_analytic_matmul"]
+    xc, dx = t_ref.quantize_codes(x, bx, False, x.abs().max() + 1e-9)
+    wc, dw = t_ref.quantize_codes(w, bw, True, w.abs().max() + 1e-9)
+    sig = (xc[:8] @ wc).std(unbiased=False) + 1e-9
+    spec = t_ref.AnalyticSpec(b_adc=8, sigma_out=10.0 ** (-25.0 / 20.0),
+                              y_clip=4.0)
+    y0 = t_ref.imc_analytic_ref(t_ref.true_div(xc, sig), wc, spec, seed=3)
+    assert torch.equal(y, y0 * sig * (dx * dw))
+
+
+@pytest.mark.parametrize("shape", [(1, 1536, 1536), (8, 6144, 1536),
+                                   (16, 1536, 2048), (17, 720, 1000),
+                                   (512, 1536, 6144), (512, 1536, 1536),
+                                   (3, 100, 7)])
+def test_int8_tile_fills_the_sms(shape):
+    """The int8 kernel's 64 x N output tiles: N = 128 only where that still
+    gives a CTA per SM, else 64."""
+    b, _, m = shape
+    n_tile = t_mvm.int8_tile(b, m)
+    assert n_tile in (64, 128)
+    assert (n_tile == 128) == (-(-b // 64) * -(-m // 128)
+                               >= t_mvm.build.SMS)
+    assert t_mvm.int8_tile(512, 6144) == 128  # 8 x 48 tiles
+    assert t_mvm.int8_tile(512, 1536) == 64   # 8 x 12 would leave SMs idle
+
+
+@pytest.mark.parametrize("bad", ["x_over", "x_signed_under", "w_over",
+                                 "w_under"])
+def test_codes_route_raises_on_a_code_outside_its_width(bad):
+    """A code one past its width raises (the CPU raises at once; the card
+    asserts on the device, see tests/test_torch_cuda.py), where the codes
+    one inside it pass."""
+    spec = t_ref.AnalyticSpec()
+    bx, bw = 6, 7
+    x_signed = bad == "x_signed_under"
+    x_lo, x_hi = (-32, 31) if x_signed else (0, 63)
+    xc = torch.tensor([[x_lo, x_hi, 1.0, 0.0]] * 2)
+    wc = torch.tensor([[-64.0, 63.0, 0.0]] * 4)
+    kw = dict(bx=bx, bw=bw, x_signed=x_signed)
+    assert torch.isfinite(t_mvm.imc_analytic_codes_matmul(
+        xc, wc, 100.0, spec, **kw)).all()
+    if bad == "x_over":
+        xc[1, 1] = x_hi + 1
+    elif bad == "x_signed_under":
+        xc[0, 0] = x_lo - 1
+    elif bad == "w_over":
+        wc[2, 1] = 64.0
+    else:
+        wc[3, 0] = -65.0
+    which = "activation" if bad.startswith("x") else "weight"
+    with pytest.raises(RuntimeError, match=f"{which} codes outside"):
+        t_mvm.imc_analytic_codes_matmul(xc, wc, 100.0, spec, **kw)
+
+
+# ---------------------------------------------------------------------------
+# the paged-attention kernel's split plan
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [
+    (8, 24, 1, 64, 8, 130, 2),   # chip_smoke.py phase 3, bf16
+    (8, 24, 1, 64, 8, 69, 2),    # the digital serve: 552-row capacity
+    (4, 2, 2, 64, 8, 6, 4),      # tests/test_torch_cuda.py, f32
+    (4, 2, 4, 128, 8, 6, 2),
+    (6, 2, 1, 64, 8, 80, 2),
+    (3, 5, 2, 16, 16, 9, 4),
+    (2, 16, 8, 256, 4, 40, 4),
+])
+def test_paged_split_plan_covers_every_row_once(shape):
+    """For every context 1 .. capacity (and overrun rows, clamped to the
+    capacity like inactive ones), the splits' row ranges cover [0, limit)
+    exactly once in logical order; the scratch holds every used split's
+    partial; a stage fits its byte budget; the lanes cover hd."""
+    b, hkv, g, hd, bs, max_blocks, elt = shape
+    plan = t_pa.plan_split(b, hkv, g, hd, bs, max_blocks, elt)
+    cap = max_blocks * bs
+    assert hkv % plan.heads == 0 and plan.heads <= t_pa.MAX_HEADS_PER_CTA
+    assert plan.head_groups * plan.heads == hkv
+    assert plan.split_rows % plan.stage_rows == 0
+    assert plan.n_splits * plan.split_rows >= cap
+    row_bytes = plan.heads * hd * elt
+    assert plan.stage_rows * plan.lpr == 32 * t_pa.ROWS_PER_GROUP
+    assert 2 * plan.stage_rows * row_bytes <= 4096 * plan.heads * plan.nv
+    assert plan.smem_bytes <= 227 * 1024
+    assert plan.lpr * plan.nv * 16 >= hd * elt and plan.nv <= 2
+    assert plan.gm >= g and plan.gm in (1, 2, 4, 8)
+    for pos in list(range(cap)) + [cap, cap + 5]:
+        limit = min(pos + 1, cap)
+        ranges = plan.ranges(limit)
+        rows = [r for lo, hi in ranges for r in range(lo, hi)]
+        assert rows == list(range(limit))
+        used = -(-limit // plan.split_rows)
+        assert len(ranges) == used <= plan.n_splits
+        if used > 1:  # (m, l) and acc of every (slot, head, split, g)
+            assert plan.scratch_floats >= b * hkv * used * g * (hd + 2)
+
+
+def test_paged_split_plan_fills_the_card():
+    """At the phase-3 shape and the serve's capacity the grid holds more
+    CTAs than the card has SMs (about two per SM) when every slot is
+    full."""
+    for max_blocks in (130, 69):
+        plan = t_pa.plan_split(8, 24, 1, 64, 8, max_blocks, 2)
+        assert 8 * plan.head_groups * plan.n_splits >= 1.5 * t_pa.build.SMS
+
+
+def test_paged_split_plan_refuses_unaligned_heads():
+    with pytest.raises(ValueError, match="16-byte"):
+        t_pa.plan_split(2, 2, 1, 12, 8, 4, 2)
+    with pytest.raises(ValueError, match="G <= 8"):
+        t_pa.plan_split(2, 2, 9, 64, 8, 4, 2)
+
+
+# ---------------------------------------------------------------------------
 # the CUDA wrappers never fall back
 # ---------------------------------------------------------------------------
 
