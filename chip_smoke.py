@@ -33,7 +33,9 @@ chunk's wall time (summary printed, tables under build/chip_smoke/);
 ``--phases ...,tiles``, the analytic kernel's tile instantiations
 (``TILE_CONFIGS``) timed against each other at every site shape;
 ``--phases device,host``, the paged-attention wrapper's host cost per call
-(``--src DIR`` times another checkout's package).
+(``--src DIR`` runs any phase on another checkout's package and kernels,
+e.g. ``git archive`` of the parent commit: processes alternating between
+the two checkouts time them against each other).
 The line before the last is a JSON object with every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a CUDA device, or outside a checkout of the repository,
@@ -58,6 +60,7 @@ EXTRA_PHASES = ("profile", "tiles", "host")
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 F32_FLOPS_PER_S = 67e12
+F64_TC_FLOPS_PER_S = 67e12  # FP64 on the tensor cores
 
 MIXED_LENS = [4, 6, 48, 5, 8, 44, 6, 7]
 # slots of the full-width bit-serial serve (phase 5) and its kernel check
@@ -282,26 +285,42 @@ def bitserial_bound(b, k, m, bits, gain):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def bitserial_fp64_ceiling(plane_rows, k, m, bw):
+    """Milliseconds of the gain instantiation's stacked plane product, a
+    (plane_rows, K) @ (K, Bw * M) float64 product, at the FP64 tensor-core
+    peak of 67 TFLOP/s."""
+    return 2 * plane_rows * k * bw * m / F64_TC_FLOPS_PER_S * 1e3
+
+
 def check_bitserial(dev):
     """Every bit-serial shape of the bit-serial serve's decode step, at its 4
     slots and knobs (7x7 bits, 256-row banks, b_adc 10): the projections
     1536->1536 (wq, wk, wv, wo), 1536->6144 and 6144->1536 (MLP) and the LM
-    head 1536->2048.  Each without noise and gain (exact) and with seeded
-    noise and per-cell gain (at most 0.1% of elements may differ by a code).
+    head 1536->2048.  Each without noise and gain (exact), with gain but no
+    noise (exact) and with seeded noise and per-cell gain (at most 0.1% of
+    elements may differ by a code).
     The serve path runs the projections with noise and gain (the kernel's
     gain instantiation) and the LM head without (its other instantiation):
-    those two are the rows of the kernels line."""
+    those two are the rows of the kernels line.  Their ``ms`` is the whole
+    wrapper call, code casts included, as the serve pays it; ``kernel_ms``
+    the kernel alone on operands already in its layout (uint8 codes, f32
+    gain), whose result must equal the wrapper's bit for bit.  Each shape's
+    line adds the FP64 tensor-core ceiling of the plane product, with the
+    plane rows padded to the kernel's 32-row tiles and with the live ones."""
     import torch
 
     from repro_torch.core.imc_linear import IMCConfig
-    from repro_torch.kernels import imc_mvm, ops, ref
+    from repro_torch.kernels import build, imc_mvm, ops, ref
 
     imc = IMCConfig(mode="imc_bitserial", bx=7, bw=7, v_wl=0.7)
     gen = torch.Generator(device=dev).manual_seed(1)
+    # the C arguments of operands already in the kernel's layout; a checkout
+    # without this helper (``--src``) has its whole wrapper calls timed only
+    c_args = getattr(imc_mvm, "bitserial_c_args", None)
     b = BITSERIAL_SLOTS
     worst = {True: 0.0, False: 0.0}
-    ms = {}
-    for k, m in ((1536, 1536), (1536, 6144), (6144, 1536), (1536, 2048)):
+    ms, kernel_ms = {}, {}
+    for k, m in SITE_SHAPES:
         mc = ops.matmul_config_from_imc(imc, k)
         spec = ref.BitSerialSpec(bx=mc.bx, bw=mc.bw, b_adc=mc.b_adc,
                                  rows=mc.rows, k_h=mc.k_h_counts,
@@ -314,17 +333,22 @@ def check_bitserial(dev):
         gain = 1.0 + mc.sigma_d * torch.randn((k, m), generator=gen,
                                               device=dev)
         step = spec.v_c / 2**spec.b_adc * 2 ** (spec.bw + spec.bx)
-        fracs = {}
-        for g, seed in ((None, None), (gain, 4242)):
+        x8, w8 = imc_mvm._code_bytes(xc), imc_mvm._code_bytes(wc)
+        fracs, notes = {}, {}
+        # without gain and noise (the LM head's instantiation), with gain
+        # but no noise (checked only), with both (the projections')
+        for g, seed in ((None, None), (gain, None), (gain, 4242)):
             y_k = imc_mvm.imc_bitserial_matmul(xc, wc, g, spec, seed=seed)
             y_p = ref.imc_bitserial_ref(xc, wc, g, spec, seed=seed)
             torch.cuda.synchronize()
             diff = (y_k - y_p).abs()
             frac = float((diff > 0).float().mean())
-            if g is None and frac > 0:
+            if seed is None and frac > 0:
                 raise AssertionError(
-                    f"bitserial ({k}x{m}) noiseless differs: max abs "
-                    f"{float(diff.max())}")
+                    f"bitserial ({k}x{m}, gain {g is not None}) noiseless "
+                    f"differs: max abs {float(diff.max())}")
+            if seed is None and g is not None:
+                continue
             if frac > 1e-3 or float(diff.max()) > step:
                 raise AssertionError(
                     f"bitserial ({k}x{m}) with noise and gain: {frac:.2e} of "
@@ -332,14 +356,41 @@ def check_bitserial(dev):
             worst[g is not None] = max(worst[g is not None],
                                        float(diff.max()))
             fracs[g is not None] = frac
-            ms[(k, m, g is not None)] = time_ms(
-                lambda: imc_mvm.imc_bitserial_matmul(xc, wc, g, spec,
-                                                     seed=seed))
+            key = (k, m, g is not None)
+            ms[key] = time_ms(lambda: imc_mvm.imc_bitserial_matmul(
+                xc, wc, g, spec, seed=seed))
+            alone = ""
+            if c_args is not None:
+                out = torch.empty((b, m), dtype=torch.float32, device=dev)
+
+                def kernel_call(g=g, seed=seed, out=out):
+                    err = build.library("bitserial").imc_bitserial_matmul(
+                        *c_args(x8, w8, g, out, spec, spec.rows, seed))
+                    if err != 0:
+                        raise RuntimeError(f"bitserial launch failed: {err}")
+
+                kernel_ms[key] = time_ms(kernel_call)
+                torch.cuda.synchronize()
+                if not torch.equal(out, y_k):
+                    raise AssertionError(f"bitserial ({k}x{m}): the kernel "
+                                         "alone and the wrapper differ")
+                alone = f" (kernel alone {kernel_ms[key]:.4f})"
+            bound, by = bitserial_bound(b, k, m, spec.bw * spec.bx,
+                                        g is not None)
+            notes[g is not None] = (f"ms={ms[key]:.4f}{alone}, "
+                                    f"bound_ms={bound:.5f} ({by})")
+        rows_p = 32 * -(-b // (32 // spec.bx))
+        padded = bitserial_fp64_ceiling(rows_p, k, m, spec.bw)
+        live = bitserial_fp64_ceiling(b * spec.bx, k, m, spec.bw)
+        shares = ("" if c_args is None else
+                  f" (kernel alone at {padded / kernel_ms[(k, m, True)]:.1%}"
+                  f" / {live / kernel_ms[(k, m, True)]:.1%} of them)")
         say("kernels", f"bitserial {b}x{k}x{m} rows={spec.rows} "
             f"b_adc={spec.b_adc}: without noise and gain exact, "
-            f"ms={ms[(k, m, False)]:.4f}; with noise and gain "
-            f"{fracs[True]:.2e} of elements differ, "
-            f"ms={ms[(k, m, True)]:.4f}")
+            f"{notes[False]}; with gain and no noise exact; with noise and "
+            f"gain {fracs[True]:.2e} of elements differ, {notes[True]}; FP64 "
+            f"tensor-core ceiling {padded:.5f} ms at {rows_p} plane rows, "
+            f"{live:.5f} ms at the {b * spec.bx} live ones{shares}")
         if (k, m) == (1536, 6144):  # the gain row's shape (MLP wi)
             main_gain = (xc, wc, gain, spec)
         if (k, m) == (1536, 2048):  # the no-gain row's shape (LM head)
@@ -354,28 +405,34 @@ def check_bitserial(dev):
     lm_plain_ms = wall_ms(lambda: ref.imc_bitserial_ref(xc, wc, None, spec),
                           iters=3, warmup=1)
     lm_bound, lm_by = bitserial_bound(b, 1536, 2048, bits, False)
+
     # the kernel's share of one decode step: 48 layers of four 1536->1536
     # projections and the two MLP projections with gain, one LM head without
-    step_ms = 48 * (4 * ms[(1536, 1536, True)] + ms[(1536, 6144, True)]
-                    + ms[(6144, 1536, True)]) + ms[(1536, 2048, False)]
+    def step_ms(t):
+        return 48 * (4 * t[(1536, 1536, True)] + t[(1536, 6144, True)]
+                     + t[(6144, 1536, True)]) + t[(1536, 2048, False)]
+
     say("kernels", f"bitserial with noise and gain at {b}x1536x6144: "
         f"ms={ms[(1536, 6144, True)]:.4f} plain_ms={gain_plain_ms:.4f} "
         f"bound_ms={gain_bound:.5f} ({gain_by}); without, LM head "
         f"{b}x1536x2048: ms={ms[(1536, 2048, False)]:.4f} "
         f"plain_ms={lm_plain_ms:.4f} bound_ms={lm_bound:.5f} ({lm_by}); "
-        f"kernel time of one {b}-slot decode step (289 launches): "
-        f"{step_ms:.2f} ms")
+        f"wrapper calls of one {b}-slot decode step (289 launches): "
+        f"{step_ms(ms):.2f} ms"
+        + (f", kernel alone {step_ms(kernel_ms):.2f} ms" if kernel_ms else ""))
     common = {"route": "cuda",
               "source": "src/repro_torch/kernels/csrc/bitserial.cu",
               "replaces": "src/repro/kernels/imc_mvm.py:140",
               "library_ms": None}
     return [dict(common, name="bitserial", max_abs_err=worst[True],
-                 ms=ms[(1536, 6144, True)], plain_ms=gain_plain_ms,
-                 bound_ms=gain_bound, bound_by=gain_by,
-                 shape=f"{b}x1536x6144, noise and gain"),
+                 ms=ms[(1536, 6144, True)],
+                 kernel_ms=kernel_ms.get((1536, 6144, True)),
+                 plain_ms=gain_plain_ms, bound_ms=gain_bound,
+                 bound_by=gain_by, shape=f"{b}x1536x6144, noise and gain"),
             dict(common, name="bitserial_nogain", max_abs_err=worst[False],
-                 ms=ms[(1536, 2048, False)], plain_ms=lm_plain_ms,
-                 bound_ms=lm_bound, bound_by=lm_by,
+                 ms=ms[(1536, 2048, False)],
+                 kernel_ms=kernel_ms.get((1536, 2048, False)),
+                 plain_ms=lm_plain_ms, bound_ms=lm_bound, bound_by=lm_by,
                  shape=f"{b}x1536x2048 (LM head), no noise or gain")]
 
 

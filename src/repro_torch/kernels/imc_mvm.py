@@ -5,9 +5,11 @@ analytic folded-noise model.
 tensors take the plain version ``ref.imc_bitserial_ref``; CUDA tensors launch
 the hand-written kernel in ``csrc/bitserial.cu`` (it replaces the TPU kernel
 ``repro/kernels/imc_mvm.py::_bitserial_kernel``) or raise.  The kernel takes
-the integer codes as one byte each and extracts the bit planes in registers;
-its noise comes from the counter hash at global ``(bank, plane, b, m)`` sites,
-so it matches the plain version draw for draw.
+the integer codes as one byte each and the gain as float32, padded by
+``kernel_layout`` to 16-row K steps and 8-column tiles; with gain it sums the
+planes on the FP64 tensor cores, without by popcount.  Its noise comes from
+the counter hash at global ``(bank, plane, b, m)`` sites, so it matches the
+plain version draw for draw.
 
 ``pack_weight_planes`` (the TPU kernel's host-side (K, Bw, M) plane packer)
 is kept for the plain path and for tests; the CUDA kernel does not use it.
@@ -56,6 +58,71 @@ def _code_bytes(codes):
     return (codes.to(torch.int16) & 0xFF).to(torch.uint8).contiguous()
 
 
+# the bit-serial kernel's layout: bank rows and K in 16-row MMA steps,
+# weight columns in 8-column tiles
+BITSERIAL_K_STEP, BITSERIAL_N_TILE = 16, 8
+
+
+def kernel_layout(x, w, w_gain, rows: int):
+    """``(x, w, w_gain, rows)`` padded to the bit-serial kernel's layout:
+    each bank's rows to a multiple of 16 when ``rows`` is not one (else only
+    K, at the end), with zero codes (gain 1), and the columns to a multiple
+    of 8 with zero codes.  Banks keep their index and the live (b, m) their
+    place, so the result's first M columns, and its noise sites, are those
+    of the unpadded call.  Operands already in the layout come back as
+    they are."""
+    k, m = w.shape
+    step, tile = BITSERIAL_K_STEP, BITSERIAL_N_TILE
+    pad = torch.nn.functional.pad
+    if rows % step:
+        n_banks = -(-k // rows)
+        rows_p = -(-rows // step) * step
+
+        def banked(t, value=0.0):  # (K, N) -> (n_banks * rows_p, N)
+            t = pad(t, (0, 0, 0, n_banks * rows - k), value=value)
+            t = pad(t.reshape(n_banks, rows, -1), (0, 0, 0, rows_p - rows),
+                    value=value)
+            return t.reshape(n_banks * rows_p, -1)
+
+        x = banked(x.t()).t().contiguous()
+        w = banked(w)
+        if w_gain is not None:
+            w_gain = banked(w_gain, 1.0)
+        rows = rows_p
+    elif k % step:
+        kp = -(-k // step) * step
+        x = pad(x, (0, kp - k))
+        w = pad(w, (0, 0, 0, kp - k))
+        if w_gain is not None:
+            w_gain = pad(w_gain, (0, 0, 0, kp - k), value=1.0)
+    if m % tile:
+        mp = -(-m // tile) * tile
+        w = pad(w, (0, mp - m))
+        if w_gain is not None:
+            w_gain = pad(w_gain, (0, mp - m), value=1.0)
+    return x, w, w_gain, rows
+
+
+def bitserial_c_args(x8, w8, gain, out, spec: BitSerialSpec, rows: int,
+                     seed: Optional[int] = None):
+    """The arguments of the C entry point ``imc_bitserial_matmul`` for
+    operands already in the kernel's layout (``kernel_layout``: uint8 codes,
+    a dense float32 gain or None, ``rows`` the padded bank height), on the
+    current stream."""
+    b_sz, kp = x8.shape
+    has_noise = seed is not None and spec.sigma_noise > 0.0
+    return (x8.data_ptr(), w8.data_ptr(),
+            None if gain is None else gain.data_ptr(), out.data_ptr(),
+            b_sz, kp, w8.shape[1], rows, spec.bx, spec.bw,
+            int(spec.x_signed), ctypes.c_float(min(spec.k_h, 3e38)),
+            int(spec.apply_adc),
+            ctypes.c_float(spec.v_c / (2.0**spec.b_adc)),
+            ctypes.c_float(2.0**spec.b_adc - 1), int(has_noise),
+            ctypes.c_uint32(int(seed or 0) & 0xFFFFFFFF),
+            ctypes.c_float(spec.sigma_noise),
+            torch.cuda.current_stream(x8.device).cuda_stream)
+
+
 def bitserial_cuda(x_codes, w_codes, w_gain, spec: BitSerialSpec,
                    seed: Optional[int] = None):
     """Launch the CUDA bit-serial kernel; returns (B, M) f32 in code units."""
@@ -72,33 +139,28 @@ def bitserial_cuda(x_codes, w_codes, w_gain, spec: BitSerialSpec,
     if not (1 <= spec.bx <= 8 and 1 <= spec.bw <= 8):
         raise ValueError(f"bx={spec.bx}, bw={spec.bw}: the kernel takes "
                          "codes of at most 8 bits")
-    x8 = _code_bytes(x_codes)
-    w8 = _code_bytes(w_codes)
     gain = None
     if w_gain is not None:
         if tuple(w_gain.shape) != (k, m) or w_gain.device != dev:
             raise ValueError("w_gain must be (K, M) on the operands' device")
-        gain = w_gain.to(torch.float32).contiguous()
-    has_noise = seed is not None and spec.sigma_noise > 0.0
-    out = torch.empty((b_sz, m), dtype=torch.float32, device=dev)
-    lib = build.library("bitserial")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.imc_bitserial_matmul(
-        x8.data_ptr(), w8.data_ptr(),
-        None if gain is None else gain.data_ptr(), out.data_ptr(),
-        b_sz, k, m, spec.rows, spec.bx, spec.bw, int(spec.x_signed),
-        ctypes.c_float(min(spec.k_h, 3e38)), int(spec.apply_adc),
-        ctypes.c_float(spec.v_c / (2.0**spec.b_adc)),
-        ctypes.c_float(2.0**spec.b_adc - 1), int(has_noise),
-        ctypes.c_uint32(int(seed or 0) & 0xFFFFFFFF),
-        ctypes.c_float(spec.sigma_noise), stream)
+        gain = w_gain.to(torch.float32)
+    x8, w8, gain, rows = kernel_layout(_code_bytes(x_codes),
+                                       _code_bytes(w_codes), gain, spec.rows)
+    if gain is not None:  # 16-byte copies need an aligned, dense gain
+        gain = gain.contiguous()
+        if gain.data_ptr() % 16:
+            gain = gain.clone()
+    mp = w8.shape[1]
+    out = torch.empty((b_sz, mp), dtype=torch.float32, device=dev)
+    err = build.library("bitserial").imc_bitserial_matmul(
+        *bitserial_c_args(x8, w8, gain, out, spec, rows, seed))
     if err != 0:
         raise RuntimeError("bitserial kernel launch failed: "
                            f"{build.error_string('bitserial', err)}")
     bitserial_cuda.launches += 1
     if gain is not None:  # of them, launches of the gain instantiation
         bitserial_cuda.gain_launches += 1
-    return out
+    return out if mp == m else out[:, :m].contiguous()
 
 
 bitserial_cuda.launches = 0

@@ -107,6 +107,7 @@ def _codes(dev, b, k, m, bx, bw, x_signed, seed=1):
     (1, 128, 128, 128, 8, 8, True),
     (16, 256, 64, 64, 2, 3, False),
     (8, 1536, 320, 256, 7, 7, True),
+    (4, 512, 40, 256, 8, 7, True),   # 8-bit inputs, 7-bit weights
 ])
 @pytest.mark.parametrize("noisy", [False, True])
 def test_bitserial_kernel_matches_plain(dev, shape, noisy):
@@ -123,6 +124,38 @@ def test_bitserial_kernel_matches_plain(dev, shape, noisy):
     y_k = imc_mvm.imc_bitserial_matmul(xc, wc, gain, spec, seed=seed)
     y_p = ref.imc_bitserial_ref(xc, wc, gain, spec, seed=seed)
     torch.cuda.synchronize()
+    assert torch.equal(y_k, y_p), float((y_k - y_p).abs().max())
+
+
+@pytest.mark.parametrize("b,k,m,gain", [
+    (128, 1536, 1536, True),   # a prefill: 4 slots x 32 prompt tokens
+    (1, 6144, 1536, True),     # decode, one slot, 24 banks
+    (4, 6144, 1536, True),     # decode, four slots
+    (4, 1536, 2048, False),    # the LM head (popcount instantiation)
+])
+def test_bitserial_kernel_matches_plain_at_serve_shapes(dev, b, k, m, gain):
+    """The bit-serial serve's knobs (7x7 bits, 256-row banks, b_adc 10, its
+    k_h, v_c, sigma_d and thermal noise), bit for bit, noise included."""
+    from repro_torch.core.imc_linear import IMCConfig
+
+    mc = ops.matmul_config_from_imc(
+        IMCConfig(mode="imc_bitserial", bx=7, bw=7, v_wl=0.7), k)
+    spec = ref.BitSerialSpec(bx=7, bw=7, b_adc=mc.b_adc, rows=mc.rows,
+                             k_h=mc.k_h_counts, v_c=mc.v_c_counts,
+                             x_signed=True,
+                             sigma_noise=mc.sigma_thermal_counts)
+    xc, wc = _codes(dev, b, k, m, 7, 7, True, seed=5)
+    w_gain, seed = None, None
+    if gain:
+        gen = torch.Generator(device=dev).manual_seed(6)
+        w_gain = 1.0 + mc.sigma_d * torch.randn((k, m), generator=gen,
+                                                device=dev)
+        seed = 4243
+    before = imc_mvm.bitserial_cuda.gain_launches
+    y_k = imc_mvm.imc_bitserial_matmul(xc, wc, w_gain, spec, seed=seed)
+    y_p = ref.imc_bitserial_ref(xc, wc, w_gain, spec, seed=seed)
+    torch.cuda.synchronize()
+    assert imc_mvm.bitserial_cuda.gain_launches == before + int(gain)
     assert torch.equal(y_k, y_p), float((y_k - y_p).abs().max())
 
 

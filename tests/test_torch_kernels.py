@@ -212,6 +212,71 @@ def test_bitserial_full_width_seed_and_gain_flip_rate(shape):
     assert diff.max() <= 2 * top_code
 
 
+@pytest.mark.parametrize("k", [1536, 6144])
+def test_bitserial_gain_plane_sums_exact_in_any_order(k):
+    """The premise of the CUDA kernel's FP64 tensor-core route: at the serve
+    path's knobs (sigma_d, 256-row banks) every gain-weighted plane count of
+    the plain version's formulation is exact in float64, so row order,
+    reverse order and the MMA's grouping (16- and 32-row partial sums, then
+    in order) give the same bits as the plain version's product, also for
+    a bank of 200 rows (not a multiple of 32)."""
+    mc, spec, _ = _full_width_specs(k)
+    b, m, rows = 4, 32, spec.rows
+    xc, wc = _codes(14, b, k, m, 7, 7, True)
+    gain = torch.tensor((1.0 + mc.sigma_d * np.random.default_rng(15).normal(
+        size=(k, m))).astype(np.float32))
+    for lo, hi in ((0, rows), (k - rows, k), (rows, rows + 200)):
+        for i in range(7):
+            wp = (t_ref.unpack_plane(wc[lo:hi], i, 7, signed=True)
+                  * gain[lo:hi]).double()
+            for j in range(7):
+                xp = t_ref.unpack_plane(xc[:, lo:hi], j, 7,
+                                        signed=True).double()
+                terms = xp[:, :, None] * wp[None]  # (B, rows, M), exact
+                in_order = terms.cumsum(1)[:, -1]
+                assert torch.equal(terms.flip(1).cumsum(1)[:, -1], in_order)
+                for step in (16, 32):
+                    pad = -terms.shape[1] % step
+                    parts = torch.nn.functional.pad(terms, (0, 0, 0, pad))
+                    parts = parts.reshape(b, -1, step, m).sum(2)
+                    assert torch.equal(parts.cumsum(1)[:, -1], in_order)
+                assert torch.equal(xp @ wp, in_order)
+
+
+@pytest.mark.parametrize("shape", SHAPES + [
+    (8, 1536, 320, 256, 7, 7, True),   # already in the kernel's layout
+    (3, 300, 13, 100, 7, 7, True),     # banks of 100 rows, 13 columns
+    (5, 600, 24, 257, 6, 7, False),    # banks of 257 rows, the last of 86
+])
+@pytest.mark.parametrize("noisy", [False, True])
+def test_bitserial_kernel_layout_keeps_the_result(shape, noisy):
+    """``kernel_layout`` pads banks to 16-row steps and columns to 8-column
+    tiles; the plain version on the padded operands (banks of the padded
+    height) gives, in its first M columns, the unpadded result bit for bit,
+    noise sites included.  Operands already in the layout stay as they
+    are."""
+    import dataclasses
+
+    b, k, m, rows = shape[:4]
+    xc, wc = _codes(16, b, k, m, shape[4], shape[5], shape[6])
+    gain = seed = None
+    if noisy:
+        gain = torch.tensor((1.0 + 0.1 * np.random.default_rng(17).normal(
+            size=(k, m))).astype(np.float32))
+        seed = 4242
+    spec = _spec(t_ref, shape, sigma_noise=0.3 if noisy else 0.0)
+    xp, wp, gp, rows_p = t_mvm.kernel_layout(xc, wc, gain, rows)
+    assert rows_p % 16 == 0 and xp.shape[1] % 16 == 0
+    assert xp.shape[1] == wp.shape[0] and wp.shape[1] % 8 == 0
+    assert xp.shape[1] >= k and -(-xp.shape[1] // rows_p) == -(-k // rows)
+    if rows % 16 == 0 and k % 16 == 0 and m % 8 == 0:
+        assert xp is xc and wp is wc and gp is gain
+    y = t_ref.imc_bitserial_ref(xc, wc, gain, spec, seed=seed)
+    y_pad = t_ref.imc_bitserial_ref(
+        xp, wp, gp, dataclasses.replace(spec, rows=rows_p), seed=seed)
+    assert torch.equal(y_pad[:, :m], y)
+
+
 def test_bitserial_noise_draws_match_oracle():
     """No gain, ADC off: the noisy plane sums agree to float tolerance (the
     draws are the same counter sites)."""
