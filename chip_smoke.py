@@ -22,14 +22,27 @@ Phases, each reported on its own line:
              substrate (metered, with the energy table), the bit-serial IMC
              substrate, and a 2x bursty overload on the analytic substrate
              with deadline scheduling, lazy KV, preemption and frontier
-             degradation; counting the kernels' launches;
+             degradation; prefix-sharing traffic (a 256-token shared prompt
+             in a pool tight enough to evict, against the same run cold,
+             then whole cached prompts that copy-on-write); drift injection
+             on the frozen analytic substrate (shadow sampling, detection,
+             hot-swap, SNR_T recovery, ms per sampled and unsampled step);
+             and faults (a transient decode error retried to the same
+             tokens, a refused kernel launch that escapes the engine);
+             counting the kernels' launches;
   6 parity   the SMOKE config in float32: the engine on the card against the
              same engine on the CPU, greedy tokens identical (for the
-             overload run, identical SLO counters, and tokens identical but
-             for exact ties of the analytic LM head's ADC-quantized logits).
+             overload run, identical SLO counters); warm prefix admissions
+             (copy-on-write included) against cold ones and card against CPU
+             on the three substrates; CI serve smokes 3 (drift) and 5
+             (prefix) card against CPU, with identical scoreboards, drift
+             counters and drifted sites.  On the analytic substrate tokens
+             may differ only at exact ties of the LM head's ADC-quantized
+             logits.
 Optional: ``--phases ...,profile``, a torch.profiler trace of one decode
-chunk of each full-width substrate - device kernel time by name against the
-chunk's wall time (summary printed, tables under build/chip_smoke/);
+chunk of each full-width substrate (the analytic one also shadow-sampled)
+and of one warm prefix admission - device kernel time by name against the
+wall time (summary printed, tables under build/chip_smoke/);
 ``--phases ...,tiles``, the analytic kernel's tile instantiations
 (``TILE_CONFIGS``) timed against each other at every site shape;
 ``--phases device,host``, the paged-attention wrapper's host cost per call
@@ -44,6 +57,7 @@ the script exits non-zero before printing a result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -68,6 +82,10 @@ BITSERIAL_SLOTS = 4
 # the full-width overload serve (phase 5): 8 slots whose full provisioning is
 # 8 * 7 + 1 = 57 KV blocks; 20 makes lazy allocation preempt
 OVERLOAD_SLOTS, OVERLOAD_REQUESTS, OVERLOAD_GEN, OVERLOAD_KV_BLOCKS = 8, 24, 16, 20
+# the full-width prefix-sharing serve (phase 5): 16 requests over 8 slots
+# behind a 256-token shared prompt, in a 90-block pool that must evict
+PREFIX_SLOTS, PREFIX_REQUESTS, PREFIX_SHARED = 8, 16, 256
+PREFIX_KV_BLOCKS = 90
 # matmul shapes of musicgen-medium (K, M): attention, MLP in, MLP out, head
 SITE_SHAPES = ((1536, 1536), (1536, 6144), (6144, 1536), (1536, 2048))
 # (BM, BN, BK, TM, TN) instantiations of the analytic kernel's tile template
@@ -790,8 +808,9 @@ def serve_run(label, argv, n_layers, vocab):
     """Serve through the CLI entry point and check what came out: no failed
     request, tokens in the vocabulary (every request's full ``max_new``
     unless it ran a workload with early stops), one paged-attention launch
-    per layer and decode step, and - when metered - a finite J/token at
-    every billed design point."""
+    per layer and decode step (warm prefix admissions' suffix steps
+    included), and - when metered - a finite J/token at every billed design
+    point."""
     import math
 
     import torch
@@ -815,10 +834,12 @@ def serve_run(label, argv, n_layers, vocab):
         if len(r.out) != want or not all(0 <= t < vocab for t in r.out):
             raise AssertionError(f"{label}: request {r.rid} produced "
                                  f"{r.out}")
-    if counts["paged_attention"] != n_layers * eng.decode_steps:
+    steps = eng.decode_steps + eng.warm_steps
+    if counts["paged_attention"] != n_layers * steps:
         raise AssertionError(
             f"{label}: {counts['paged_attention']} paged-attention launches "
-            f"for {eng.decode_steps} decode steps of {n_layers} layers")
+            f"for {eng.decode_steps} decode and {eng.warm_steps} warm steps "
+            f"of {n_layers} layers")
     meter = rep["meter"]
     if meter is not None:
         if meter.billed_tokens <= 0 or not rep["energy"] or not all(
@@ -828,8 +849,8 @@ def serve_run(label, argv, n_layers, vocab):
     say("serve", f"{label}: {len(fin)} requests, {rep['tokens']} tokens in "
         f"{rep['seconds']:.2f} s, {rep['tok_s']:.1f} tok/s, mean TTFT "
         f"{rep['ttft_ms']:.1f} ms, {eng.decode_steps} decode steps, "
-        f"{eng.prefill_calls} prefills, launches {counts} "
-        f"({counts['paged_attention'] / max(eng.decode_steps, 1):.0f} "
+        f"{eng.warm_steps} warm steps, {eng.prefill_calls} prefills, "
+        f"launches {counts} ({counts['paged_attention'] / max(steps, 1):.0f} "
         f"paged-attention per step), peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if rep["slo"] is not None:
@@ -853,6 +874,261 @@ def overload_argv(n_requests, gen, kv_blocks, slots):
             "--kv-blocks", str(kv_blocks), "--degrade", "--imc-mode",
             "imc_analytic", "--imc-policy", "frozen", "--energy-report",
             "--seed", "0"]
+
+
+def prefix_argv(cache: bool):
+    """Shared-system-prompt traffic: a 256-token prompt shared by every
+    request, tails of 8..40 tokens, in a KV pool (90 blocks) too small to
+    keep every finished request's cached blocks, so admissions evict."""
+    return ["--arch", "musicgen-medium", "--batch", str(PREFIX_SLOTS),
+            "--requests", str(PREFIX_REQUESTS), "--prompt-lens",
+            "8,24,16,40,12,32", "--shared-prefix-len", str(PREFIX_SHARED),
+            "--gen", "16", "--chunk", "8", "--kv-blocks",
+            str(PREFIX_KV_BLOCKS), "--energy-report", "--seed", "0",
+            "--prefix-cache" if cache else "--no-prefix-cache"]
+
+
+def serve_prefix(n_layers, vocab):
+    """Prefix-sharing serving at full width: the same argv cold and warm,
+    then whole cached prompts through the engine API (the shared prefix
+    alone, twice), which copy-on-write its last block on the card.  Checks
+    hits, copies, evictions, the allocator's conservation, the billed
+    saving and the launches of the warm suffix steps."""
+    from repro_torch.launch.serve import Request, serve
+
+    cold_counts, cold = serve_run("prefix cold", prefix_argv(False),
+                                  n_layers, vocab)
+    warm_counts, warm = serve_run("prefix warm", prefix_argv(True), n_layers,
+                                  vocab)
+    eng = warm["engine"]
+    shared = warm["finished"][0].prompt[:PREFIX_SHARED]
+    steps0 = eng.decode_steps + eng.warm_steps
+    reset_counts()
+    dups = [Request(rid=PREFIX_REQUESTS + i, prompt=shared.copy(), max_new=4)
+            for i in range(2)]
+    for r in dups:
+        serve(eng, [r])
+    dup_counts = read_counts()
+    steps = eng.decode_steps + eng.warm_steps - steps0
+    if dup_counts["paged_attention"] != n_layers * steps:
+        raise AssertionError(f"prefix: {dup_counts} launches for {steps} "
+                             f"decode and warm steps")
+    ps = eng.prefix_stats()
+    a = eng.alloc
+    referenced = {b for blocks in eng._slot_blocks for b in blocks}
+    bad = [r.rid for r in eng.finished if r.error is not None]
+    if (ps["hits"] <= 0 or ps["cow_copies"] < 1 or ps["evictions"] < 1
+            or bad or dups[0].out != dups[1].out
+            or a.free_count + len(referenced) + a.evictable_count
+            != a.num_blocks - 1
+            or a.used_count != len(referenced) + a.evictable_count
+            or warm["meter"].prefix_saved_billed_tokens <= 0):
+        raise AssertionError(
+            f"prefix: scoreboard {ps}, failed {bad}, copies' tokens "
+            f"{[r.out for r in dups]}, free {a.free_count} referenced "
+            f"{len(referenced)} idle {a.evictable_count} of "
+            f"{a.num_blocks - 1}, saved billed tokens "
+            f"{warm['meter'].prefix_saved_billed_tokens}")
+    cold_out = {r.rid: r.out for r in cold["finished"]}
+    same = sum(t == u for r in warm["finished"] if r.rid in cold_out
+               for t, u in zip(r.out, cold_out[r.rid]))
+    total = sum(len(o) for o in cold_out.values())
+    say("serve", f"prefix: warm {warm['tok_s']:.1f} tok/s, mean TTFT "
+        f"{warm['ttft_ms']:.1f} ms; cold {cold['tok_s']:.1f} tok/s, mean "
+        f"TTFT {cold['ttft_ms']:.1f} ms; {same} of {total} warm tokens equal "
+        f"the cold ones; scoreboard {ps}; billed prefill tokens "
+        f"{warm['meter'].prefill_billed_tokens} warm, "
+        f"{cold['meter'].prefill_billed_tokens} cold (saved "
+        f"{warm['meter'].prefix_saved_billed_tokens}); pool free "
+        f"{a.free_count} + referenced {len(referenced)} + idle cached "
+        f"{a.evictable_count} = {a.num_blocks - 1}; copy-on-write "
+        f"admissions' launches {dup_counts}")
+    return [cold_counts, warm_counts, dup_counts]
+
+
+DRIFT_ARGV = ["--arch", "musicgen-medium", "--batch", "4", "--requests", "8",
+              "--prompt-lens", "5,9,32,4,17,6,12,20", "--gen", "16",
+              "--chunk", "4", "--imc-mode", "imc_analytic", "--imc-policy",
+              "frozen", "--inject-drift", "2.5@4", "--seed", "0"]
+DRIFT_FLAGS = ["--recalibrate", "--drift-sample-every", "1",
+               "--drift-check-every", "1"]
+
+
+@contextlib.contextmanager
+def chunk_log():
+    """Records each decode chunk of the engines made inside (device ms with
+    a synchronize on each side, steps, bytes to the host), each drift check
+    (``(monitor.chunks_seen, report)``) and the index of the first chunk
+    after an ``--inject-drift`` weight shift."""
+    import torch
+
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.runtime import drift as drift_lib
+
+    log = {"chunks": [], "checks": [], "injected": []}
+    decode_chunk = serve_mod.Engine.decode_chunk
+    check, scale_wi = drift_lib.DriftMonitor.check, serve_mod._scale_wi
+
+    def timed(self, n_steps=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        block = decode_chunk(self, n_steps)
+        torch.cuda.synchronize()
+        if block.shape[1]:
+            log["chunks"].append(((time.perf_counter() - t0) * 1e3,
+                                  block.shape[1], block.nbytes))
+        return block
+
+    def logged(self, frozen):
+        rep = check(self, frozen)
+        if rep is not None:
+            log["checks"].append((self.chunks_seen, rep))
+        return rep
+
+    def marked(p, scale):
+        log["injected"].append(len(log["chunks"]))
+        return scale_wi(p, scale)
+
+    serve_mod.Engine.decode_chunk = timed
+    drift_lib.DriftMonitor.check = logged
+    serve_mod._scale_wi = marked
+    try:
+        yield log
+    finally:
+        serve_mod.Engine.decode_chunk = decode_chunk
+        drift_lib.DriftMonitor.check = check
+        serve_mod._scale_wi = scale_wi
+
+
+def serve_drift(n_layers, vocab):
+    """Drift injection at full width on the frozen analytic substrate: the
+    run with every chunk shadow-sampled and checked against the same run
+    unsampled.  Checks detection at the mlp sites within ``sample_every *
+    check_every`` chunks of the shift, a swap, the recovery gap (at most
+    1 dB, the reference's bound) and one equal host transfer per chunk."""
+    runs = {}
+    for label, argv in (("drift unsampled", DRIFT_ARGV),
+                        ("drift sampled", DRIFT_ARGV + DRIFT_FLAGS)):
+        with chunk_log() as log:
+            counts, rep = serve_run(label, argv, n_layers, vocab)
+        runs[label] = counts, rep, log
+    _, base, base_log = runs["drift unsampled"]
+    _, rep, log = runs["drift sampled"]
+    eng, mon = rep["engine"], rep["monitor"]
+    after = log["injected"][0]
+    bound = mon.cfg.sample_every * mon.cfg.check_every
+    hits = [(chunk, r.drifted_sites) for chunk, r in log["checks"]
+            if chunk > after and {"mlp.wi", "mlp.wo"} & set(r.drifted_sites)]
+    if not hits or hits[0][0] - after > bound:
+        seen = [(c, r.drifted_sites) for c, r in log["checks"]]
+        raise AssertionError(f"drift: no mlp-site drift within {bound} "
+                             f"chunks of the shift after chunk {after}: "
+                             f"{seen}")
+    gaps = [r["recovery_gap_db"] for r in rep["snr_rows"]
+            if r["x_max_observed"] > r["x_max_frozen"]]
+    if eng.swap_count < 1 or not gaps or max(map(abs, gaps)) > 1.0:
+        raise AssertionError(f"drift: {eng.swap_count} swaps, recovery gaps "
+                             f"{gaps} dB")
+    per_chunk = [b for _, _, b in log["chunks"]]
+    if (per_chunk != [b for _, _, b in base_log["chunks"]]
+            or any(b != 4 * eng.batch_slots * n
+                   for _, n, b in log["chunks"])
+            or eng.host_transfer_bytes != base["engine"].host_transfer_bytes):
+        raise AssertionError(f"drift: host transfers per chunk differ: "
+                             f"{per_chunk} vs {base_log['chunks']}")
+
+    def ms_per_step(chunks):
+        return sum(ms for ms, _, _ in chunks) / sum(n for _, n, _ in chunks)
+
+    say("serve", f"drift: {mon.counters()}, {eng.swap_count} swaps; first "
+        f"mlp-site drift at chunk {hits[0][0]}, the shift after chunk "
+        f"{after}; drifted sites {hits[0][1]}; recovery gaps "
+        f"{[round(g, 4) for g in gaps]} dB; "
+        f"{ms_per_step(log['chunks']):.2f} ms per sampled step (check "
+        f"included), {ms_per_step(base_log['chunks']):.2f} ms per unsampled "
+        f"step; {len(per_chunk)} chunks, {sum(per_chunk)} host-transfer "
+        f"bytes in each run")
+    return [counts for counts, _, _ in runs.values()]
+
+
+class RefusedLaunch:
+    """Stands in for a kernel library whose entry point refuses every
+    launch (returns CUDA error 1), counting the calls."""
+
+    def __init__(self, lib, entry):
+        self.lib, self.calls = lib, 0
+        setattr(self, entry, self.refuse)
+
+    def refuse(self, *args):
+        self.calls += 1
+        return 1
+
+    def kernel_error_string(self, err):
+        return self.lib.kernel_error_string(err)
+
+
+def serve_faults():
+    """Faults at full width on the digital substrate: a transient error
+    injected before one decode chunk is retried to the uninjected run's
+    tokens; a refused paged-attention launch escapes the engine at once,
+    unretried, with no request retired."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import Engine, Request, serve
+    from repro_torch.models import init_params
+    from repro_torch.runtime.fault import TransientDeviceError
+
+    cfg = configs.get("musicgen-medium")
+    params = init_params(cfg, seed=0, device="cuda")
+
+    def requests():
+        rnp = np.random.default_rng(5)
+        return [Request(rid=i, prompt=rnp.integers(0, cfg.vocab_size, n),
+                        max_new=8) for i, n in enumerate((5, 17, 9, 30))]
+
+    reset_counts()
+    clean = Engine(cfg, params, 4, 64, max_chunk=4)
+    want = {r.rid: r.out for r in serve(clean, requests())}
+    hits = []
+
+    def injector(phase, info):
+        if phase == "decode" and info == 1 and not hits:
+            hits.append(info)
+            raise TransientDeviceError("injected before decode chunk 1")
+
+    eng = Engine(cfg, params, 4, 64, max_chunk=4, failure_injector=injector)
+    got = {r.rid: r.out for r in serve(eng, requests())}
+    counts = read_counts()
+    steps = clean.decode_steps + eng.decode_steps
+    if (not hits or got != want or eng.decode_failures
+            or counts["paged_attention"] != cfg.n_layers * steps):
+        raise AssertionError(f"faults: injected {hits}, tokens {got} vs "
+                             f"{want}, {eng.decode_failures} failed chunks, "
+                             f"launches {counts} for {steps} steps")
+    real = build.library("paged_attention")
+    refused = RefusedLaunch(real, "paged_attention_decode")
+    eng = Engine(cfg, params, 4, 64, max_chunk=4)
+    eng.admit_pending(requests())
+    build._loaded["paged_attention"] = refused
+    try:
+        eng.decode_chunk()
+    except build.KernelLaunchError as e:
+        escaped = e
+    else:
+        raise AssertionError("faults: a refused launch did not escape")
+    finally:
+        build._loaded["paged_attention"] = real
+    if refused.calls != 1 or eng.failed_requests or eng.decode_failures:
+        raise AssertionError(f"faults: the refused launch was tried "
+                             f"{refused.calls} times; {eng.failed_requests} "
+                             f"requests retired")
+    say("serve", f"faults: a transient decode error retried to the same "
+        f"{sum(map(len, got.values()))} tokens (launches {counts}); a "
+        f"refused launch escaped the engine after 1 call, unretried: "
+        f"{escaped}")
+    return [counts]
 
 
 def phase_serve():
@@ -884,7 +1160,8 @@ def phase_serve():
     if rep["engine"].substrate_swaps < 1:
         raise AssertionError("overload: the frontier was never walked "
                              "(0 substrate swaps)")
-    runs = (digital, bitserial, overload)
+    runs = [digital, bitserial, overload, *serve_prefix(n_layers, vocab),
+            *serve_drift(n_layers, vocab), *serve_faults()]
     counts = {k: sum(c[k] for c in runs) for k in digital
               if not k.startswith("analytic")}
     if min(counts.values()) <= 0:
@@ -940,23 +1217,28 @@ def phase_parity(dev):
             f"tokens, card launches {counts})")
 
     overload_parity(dev)
+    prefix_parity(dev)
+    cli_parity(dev)
 
 
 class TokenProbe:
     """Records the logits behind every token an engine emits, keyed by
     (request id, token index), with the frontier level (index into
-    ``ladder``) the engine was at.  With ``force`` ({key: token}), each
-    forced token is made the greedy pick after its logits are recorded, so
-    the engine follows a given token stream (teacher forcing through the
-    engine's own prefill and decode path)."""
+    ``ladder``; 0 without one) the engine was at.  With ``force`` ({key:
+    token}), each forced token is made the greedy pick after its logits are
+    recorded, so the engine follows a given token stream (teacher forcing
+    through the engine's own prefill, warm prefill and decode path)."""
 
     def __init__(self, eng, ladder, force=None):
         self.eng, self.ladder, self.force = eng, ladder, force
         self.logits, self.level = {}, {}
-        self.rows, self.step = [], 0
-        # which rows hold which request, set where a prefill group or a
-        # decode chunk starts: (row, request, index of the row's next token)
+        self.rows, self.step, self.skip, self.head = [], 0, 0, None
+        # which rows hold which request, set where a prefill group, a warm
+        # prefill or a decode chunk starts: (row, request, index of the
+        # row's next token); a warm prefill's suffix steps before its last
+        # one emit nothing
         run_chunk, admit_group = eng._run_chunk, eng._admit_group
+        try_prefix, warm = eng._try_admit_prefix, eng._warm_prefill
 
         def _run_chunk(n_steps, active, key):
             self.start([(i, r) for i, r in enumerate(eng.slots)
@@ -967,24 +1249,39 @@ class TokenProbe:
             self.start(list(enumerate(group)))
             return admit_group(group, slot_ids, bucket)
 
-        eng._run_chunk, eng._admit_group = _run_chunk, _admit_group
+        def _try_admit_prefix(req, slot):
+            self.head = req
+            return try_prefix(req, slot)
 
-    def start(self, rows):
+        def _warm_prefill(slot, bt_row, suffix, start, key):
+            self.start([(slot, self.head)], skip=len(suffix) - 1)
+            return warm(slot, bt_row, suffix, start, key)
+
+        eng._run_chunk, eng._admit_group = _run_chunk, _admit_group
+        eng._try_admit_prefix, eng._warm_prefill = (_try_admit_prefix,
+                                                    _warm_prefill)
+
+    def start(self, rows, skip=0):
         self.rows = [(i, r, len(r.out)) for i, r in rows]
-        self.step = 0
+        self.step, self.skip = 0, skip
 
     def emit(self, logits):
         """Called with each (rows, 1, V) logits block the engine argmaxes."""
-        designs = [sub.design for sub in self.ladder]
-        level = designs.index(self.eng.substrate.design)
+        level = 0
+        if self.ladder is not None:
+            designs = [sub.design for sub in self.ladder]
+            level = designs.index(self.eng.substrate.design)
+        step = self.step - self.skip
+        self.step += 1
+        if step < 0:
+            return logits
         bump = []
         for i, req, idx in self.rows:
-            key = (req.rid, idx + self.step)
+            key = (req.rid, idx + step)
             row = logits[i, -1].float().cpu()
             self.logits[key], self.level[key] = row, level
             if self.force is not None and key in self.force:
                 bump.append((i, self.force[key], float(row.max()) + 1.0))
-        self.step += 1
         if bump:
             logits = logits.clone()
             for i, tok, top in bump:
@@ -992,21 +1289,110 @@ class TokenProbe:
         return logits
 
 
-def overload_parity(dev):
-    """The overload path on SMOKE in float32, card against CPU: the same
-    workload, scheduler, pool and frontier ladder as phase 5's overload run.
+@contextlib.contextmanager
+def probing(ladder=None, force=None):
+    """Every engine made inside carries a :class:`TokenProbe` (yielded in
+    order of creation) that sees each logits block it argmaxes."""
+    from repro_torch.launch import serve as serve_mod
 
-    The virtual clock makes every SLO counter a function of the seed, so
-    they must match exactly.  The analytic substrate's MPC ADC makes the LM
-    head's logits multiples of one code, so two tokens can tie exactly at
-    the top, and the card's other summation order can break such a tie the
-    other way.  So where the tokens differ, the CPU is run again, forced
-    through the engine onto the card's tokens, and at every token the card's
-    pick must be the CPU's greedy pick on the same history and frontier
-    level, or the two picks' logits must be exactly equal on the CPU or on
-    the card.  Lengths must match, and every token is compared."""
-    import numpy as np
+    probes = []
+    base = serve_mod.Engine
+    model_prefill, model_decode = serve_mod.prefill, serve_mod.decode_step
+
+    class Probed(base):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            probes.append(TokenProbe(self, ladder, force))
+
+    def prefill(*a, **k):
+        logits, cache = model_prefill(*a, **k)
+        return probes[-1].emit(logits), cache
+
+    def decode_step(*a, **k):
+        logits, cache = model_decode(*a, **k)
+        return probes[-1].emit(logits), cache
+
+    serve_mod.Engine = Probed
+    serve_mod.prefill, serve_mod.decode_step = prefill, decode_step
+    try:
+        yield probes
+    finally:
+        serve_mod.Engine = base
+        serve_mod.prefill, serve_mod.decode_step = (model_prefill,
+                                                    model_decode)
+
+
+def tie_parity(label, run_a, run_b, ties: bool, strict: bool = False):
+    """Hold run A's tokens against run B's.  Each ``run(force)`` returns
+    ({rid: tokens}, counters (a JSON string), probe).  Token counts must
+    match, and the counters (before any forcing, when ``strict``).  Where
+    tokens differ and ``ties`` (the analytic substrate: its MPC ADC makes
+    the LM head's logits multiples of one code, so two tokens can tie
+    exactly and another summation order breaks the tie the other way), B
+    runs again forced through the engine onto A's tokens: it must reproduce
+    them and A's counters, and at every token A's pick must be B's greedy
+    pick on the same history and frontier level, or the two picks' logits
+    must be exactly equal in A or in B.  Every token is compared."""
     import torch
+
+    out_a, cnt_a, probe_a = run_a(None)
+    out_b, cnt_b, _ = run_b(None)
+    lens_a = {rid: len(o) for rid, o in out_a.items()}
+    lens_b = {rid: len(o) for rid, o in out_b.items()}
+    if lens_a != lens_b:
+        raise AssertionError(f"{label}: request lengths differ, {lens_a} vs "
+                             f"{lens_b}")
+    if strict and cnt_a != cnt_b:
+        raise AssertionError(f"{label}: counters {cnt_a} != {cnt_b}")
+    n_tok = sum(lens_b.values())
+    if out_a == out_b and cnt_a == cnt_b:
+        return f"all {n_tok} tokens and the counters identical ({cnt_a})"
+    if not ties:
+        raise AssertionError(f"{label}: tokens or counters differ: {out_a} "
+                             f"{cnt_a} vs {out_b} {cnt_b}")
+    force = {(rid, i): t for rid, o in out_a.items() for i, t in enumerate(o)}
+    out_f, cnt_f, probe_b = run_b(force)
+    if out_f != out_a or cnt_f != cnt_a:
+        raise AssertionError(f"{label}: the run forced onto the other's "
+                             f"tokens did not reproduce them or its "
+                             f"counters: {out_f} {cnt_f} vs {out_a} {cnt_a}")
+    tied = []
+    for key, tok in sorted(force.items()):
+        lb, la = probe_b.logits[key], probe_a.logits[key]
+        if probe_b.level[key] != probe_a.level[key]:
+            raise AssertionError(f"{label}: token {key} was emitted at "
+                                 f"frontier level {probe_a.level[key]} and "
+                                 f"{probe_b.level[key]}")
+        mine = int(torch.argmax(lb))  # B's greedy pick
+        if mine == tok:
+            continue
+        if lb[tok] == lb[mine]:
+            where = "B"
+        elif la[tok] == la[mine]:
+            where = "A"
+        else:
+            raise AssertionError(
+                f"{label}: request {key[0]} token {key[1]} (frontier level "
+                f"{probe_a.level[key]}) is {tok} in A, where B picks {mine} "
+                f"on the same history; logits B {float(lb[tok])!r} vs "
+                f"{float(lb[mine])!r}, A {float(la[tok])!r} vs "
+                f"{float(la[mine])!r}")
+        tied.append(f"request {key[0]} token {key[1]} at level "
+                    f"{probe_a.level[key]}: A {tok}, B {mine}, logits "
+                    f"exactly equal in {where} ({float(lb[mine])!r})")
+    same = sum(out_a[r] == out_b[r] for r in out_b)
+    return (f"counters identical ({cnt_a}); tokens identical for {same} of "
+            f"{len(out_b)} requests; forced onto A's tokens, B picks A's "
+            f"token at {n_tok - len(tied)} of {n_tok} tokens and the rest "
+            f"are exact ties: {'; '.join(tied)}")
+
+
+def overload_parity(dev):
+    """The overload path on SMOKE in float32, card (A) against CPU (B): the
+    same workload, scheduler, pool and frontier ladder as phase 5's
+    overload run.  The virtual clock makes every SLO counter a function of
+    the seed, so they must match exactly; tokens under the tie rule."""
+    import numpy as np
 
     from repro_torch import configs
     from repro_torch.core.design import optimize
@@ -1016,7 +1402,6 @@ def overload_parity(dev):
         substrate_ladder,
     )
     from repro_torch.launch import serve as serve_mod
-    from repro_torch.launch.serve import Engine, serve_workload
     from repro_torch.models import init_params
     from repro_torch.models.model import tree_map
     from repro_torch.runtime.workload import VirtualClock, make_overload_config
@@ -1026,90 +1411,151 @@ def overload_parity(dev):
     cfg = configs.get_smoke("musicgen-medium")
     cfg = cfg.replace(imc=substrate_for_design(pt))
     params_cpu = init_params(cfg, seed=0, device="cpu")
+    params_gpu = tree_map(lambda t: t.to(dev), params_cpu)
     ref = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 32))
     cfg = calibrate_model(cfg, params_cpu, [ref])
     wcfg = make_overload_config(
         n_requests=OVERLOAD_REQUESTS, seed=0, overload=2.0,
         slots=OVERLOAD_SLOTS, max_new=OVERLOAD_GEN, arrival="bursty")
-    model_prefill, model_decode = serve_mod.prefill, serve_mod.decode_step
 
-    def overload(params, force=None):
-        eng = Engine(cfg, params, OVERLOAD_SLOTS, 32 + OVERLOAD_GEN + 8,
-                     max_chunk=4, kv_blocks=OVERLOAD_KV_BLOCKS,
-                     alloc_policy="lazy", clock=VirtualClock())
-        probe = TokenProbe(eng, ladder, force)
+    def overload(params):
+        def run(force):
+            with probing(ladder, force) as probes:
+                eng = serve_mod.Engine(
+                    cfg, params, OVERLOAD_SLOTS, 32 + OVERLOAD_GEN + 8,
+                    max_chunk=4, kv_blocks=OVERLOAD_KV_BLOCKS,
+                    alloc_policy="lazy", clock=VirtualClock())
+                fin, summary = serve_mod.serve_workload(eng, wcfg,
+                                                        "deadline", ladder)
+            return ({r.rid: r.out for r in fin},
+                    json.dumps(summary, sort_keys=True), probes[-1])
+        return run
 
-        def prefill(*a, **k):
-            logits, cache = model_prefill(*a, **k)
-            return probe.emit(logits), cache
+    say("parity", "SMOKE float32 overload, card against CPU: " + tie_parity(
+        "overload", overload(params_gpu), overload(params_cpu), ties=True,
+        strict=True))
 
-        def decode_step(*a, **k):
-            logits, cache = model_decode(*a, **k)
-            return probe.emit(logits), cache
 
-        serve_mod.prefill, serve_mod.decode_step = prefill, decode_step
-        try:
-            fin, summary = serve_workload(eng, wcfg, "deadline", ladder)
-        finally:
-            serve_mod.prefill, serve_mod.decode_step = (model_prefill,
-                                                        model_decode)
-        return ({r.rid: r.out for r in fin},
-                json.dumps(summary, sort_keys=True), probe)
+def prefix_parity(dev):
+    """Warm prefix admissions on SMOKE in float32, on the three substrates:
+    a shared 16-token prompt over five requests, then a whole cached
+    16-token prompt twice (copy-on-write).  Warm against cold on the card,
+    and warm on the card against warm on the CPU with the same prefix
+    scoreboard; on the analytic substrate under the tie rule."""
+    import numpy as np
 
-    out_gpu, slo_gpu, probe_gpu = overload(
-        tree_map(lambda t: t.to(dev), params_cpu))
-    out_cpu, slo_cpu, _ = overload(params_cpu)
-    if slo_gpu != slo_cpu:
-        raise AssertionError(f"overload: card SLO counters {slo_gpu} != "
-                             f"CPU {slo_cpu}")
-    lens_gpu = {rid: len(o) for rid, o in out_gpu.items()}
-    lens_cpu = {rid: len(o) for rid, o in out_cpu.items()}
-    if lens_gpu != lens_cpu:
-        raise AssertionError(f"overload: request lengths differ, card "
-                             f"{lens_gpu} CPU {lens_cpu}")
-    same = sum(out_gpu[r] == out_cpu[r] for r in out_cpu)
-    n_tok = sum(lens_cpu.values())
-    if same == len(out_cpu):
-        say("parity", f"SMOKE float32 overload: SLO counters and all "
-            f"{n_tok} tokens identical on the card and the CPU ({slo_cpu})")
-        return
-    force = {(rid, i): t for rid, o in out_gpu.items()
-             for i, t in enumerate(o)}
-    out_forced, slo_forced, probe_cpu = overload(params_cpu, force)
-    if out_forced != out_gpu or slo_forced != slo_gpu:
-        raise AssertionError("overload: the CPU run forced onto the card's "
-                             "tokens did not reproduce them or its SLO "
-                             f"counters: {out_forced} {slo_forced}")
-    ties = []
-    for key, tok in sorted(force.items()):
-        lc, lg = probe_cpu.logits[key], probe_gpu.logits[key]
-        if probe_cpu.level[key] != probe_gpu.level[key]:
-            raise AssertionError(f"overload: token {key} was emitted at "
-                                 f"frontier level {probe_gpu.level[key]} on "
-                                 f"the card, {probe_cpu.level[key]} on the "
-                                 f"CPU")
-        mine = int(torch.argmax(lc))  # the CPU's greedy pick
-        if mine == tok:
-            continue
-        if lc[tok] == lc[mine]:
-            where = "CPU"
-        elif lg[tok] == lg[mine]:
-            where = "card"
-        else:
-            raise AssertionError(
-                f"overload: request {key[0]} token {key[1]} (frontier level "
-                f"{probe_gpu.level[key]}) is {tok} on the card, where the "
-                f"CPU picks {mine} on the same history; logits CPU "
-                f"{float(lc[tok])!r} vs {float(lc[mine])!r}, card "
-                f"{float(lg[tok])!r} vs {float(lg[mine])!r}")
-        ties.append(f"request {key[0]} token {key[1]} at level "
-                    f"{probe_gpu.level[key]}: card {tok}, CPU {mine}, logits "
-                    f"exactly equal on the {where} ({float(lc[mine])!r})")
-    say("parity", f"SMOKE float32 overload: SLO counters identical on the "
-        f"card and the CPU ({slo_cpu}); tokens identical for {same} of "
-        f"{len(out_cpu)} requests; forced onto the card's tokens, the CPU "
-        f"picks the card's token at {n_tok - len(ties)} of {n_tok} tokens "
-        f"and the rest are exact ties: {'; '.join(ties)}")
+    from repro_torch import configs
+    from repro_torch.core.imc_linear import IMCConfig
+    from repro_torch.core.substrate import calibrate_model
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import init_params
+    from repro_torch.models.model import tree_map
+
+    for mode in ("digital", "imc_analytic", "imc_bitserial"):
+        cfg = configs.get_smoke("musicgen-medium")
+        params_cpu = init_params(cfg, seed=0, device="cpu")
+        if mode != "digital":
+            cfg = cfg.replace(imc=IMCConfig(mode=mode, bx=7, bw=7, v_wl=0.7))
+            ref = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                                    (2, 24))
+            cfg = calibrate_model(cfg, params_cpu, [ref])
+        params_gpu = tree_map(lambda t: t.to(dev), params_cpu)
+
+        def runner(params, cache, counters=True):
+            def run(force):
+                rnp = np.random.default_rng(3)
+                shared = rnp.integers(0, cfg.vocab_size, 16)
+                reqs = [serve_mod.Request(
+                    rid=i, max_new=5, prompt=np.concatenate(
+                        [shared, rnp.integers(0, cfg.vocab_size, n)]))
+                    for i, n in enumerate((5, 9, 3, 12, 7))]
+                reqs += [serve_mod.Request(rid=5 + i, prompt=shared.copy(),
+                                           max_new=5) for i in range(2)]
+                with probing(None, force) as probes:
+                    eng = serve_mod.Engine(cfg, params, batch_slots=4,
+                                           cache_len=48, max_chunk=4,
+                                           prefix_cache=cache)
+                    for group in (reqs[:1], reqs[1:5], reqs[5:6], reqs[6:]):
+                        serve_mod.serve(eng, group)
+                if any(r.error for r in eng.finished):
+                    raise AssertionError(f"prefix {mode}: failed requests")
+                ps = eng.prefix_stats()
+                if cache and (ps["hits"] != 6 or ps["cow_copies"] != 2):
+                    raise AssertionError(f"prefix {mode}: scoreboard {ps}")
+                return ({r.rid: r.out for r in eng.finished},
+                        json.dumps(ps, sort_keys=True) if counters else "",
+                        probes[-1])
+            return run
+
+        ties = mode == "imc_analytic"
+        warm_cold = tie_parity(f"prefix {mode} warm vs cold",
+                               runner(params_gpu, True, False),
+                               runner(params_gpu, False, False), ties)
+        card_cpu = tie_parity(f"prefix {mode} card vs CPU",
+                              runner(params_gpu, True),
+                              runner(params_cpu, True), ties, strict=True)
+        say("parity", f"SMOKE float32 prefix {mode} (6 hits, 2 "
+            f"copy-on-write): warm against cold on the card: {warm_cold}; "
+            f"warm on the card against the CPU: {card_cpu}")
+
+
+CI_SMOKE3 = ["--arch", "musicgen-medium", "--smoke", "--batch", "4", "--gen",
+             "8", "--requests", "6", "--prompt-lens", "5,9,32,4,17,6",
+             "--imc-mode", "imc_analytic", "--imc-policy", "frozen",
+             "--recalibrate", "--drift-sample-every", "1",
+             "--drift-check-every", "1", "--inject-drift", "2.5@3"]
+CI_SMOKE5 = ["--arch", "musicgen-medium", "--smoke", "--batch", "4", "--gen",
+             "8", "--requests", "8", "--prompt-lens", "4,24,48,6,8,40,5,16",
+             "--prefix-cache", "--shared-prefix-len", "16", "--imc-mode",
+             "imc_analytic", "--imc-policy", "frozen", "--energy-report"]
+
+
+def cli_parity(dev):
+    """CI serve smokes 3 (drift injection) and 5 (prefix cache) through the
+    CLI, card (A) against CPU (B), with the same CPU-made weights: tokens
+    under the tie rule, and the prefix scoreboard, billed counts, drift
+    counters and each check's drifted sites identical."""
+    import io
+
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models.model import tree_map
+
+    init = serve_mod.init_params
+
+    def runner(argv, device):
+        def run(force):
+            def params_via_cpu(cfg, seed=0, device=None):
+                return tree_map(lambda t: t.to(device),
+                                init(cfg, seed=seed, device="cpu"))
+
+            serve_mod.init_params = params_via_cpu
+            try:
+                with probing(None, force) as probes, chunk_log() as log, \
+                        contextlib.redirect_stdout(io.StringIO()):
+                    rep = serve_mod.main(argv + ["--device", device])
+            finally:
+                serve_mod.init_params = init
+            eng, meter, mon = rep["engine"], rep["meter"], rep["monitor"]
+            if any(r.error for r in rep["finished"]):
+                raise AssertionError(f"{argv}: failed requests")
+            counters = {
+                "prefix": eng.prefix_stats(),
+                "billed": None if meter is None else [
+                    meter.prefill_billed_tokens, meter.decode_billed_tokens,
+                    meter.prefix_saved_billed_tokens],
+                "drift": None if mon is None else mon.counters(),
+                "drifted": [[c, list(r.drifted_sites)]
+                            for c, r in log["checks"]],
+                "swaps": eng.swap_count}
+            return ({r.rid: r.out for r in rep["finished"]},
+                    json.dumps(counters, sort_keys=True), probes[-1])
+        return run
+
+    for name, argv in (("CI smoke 3 (drift)", CI_SMOKE3),
+                       ("CI smoke 5 (prefix)", CI_SMOKE5)):
+        say("parity", f"SMOKE float32 {name}, card against CPU: "
+            + tie_parity(name, runner(argv, "cuda"), runner(argv, "cpu"),
+                         ties=True))
 
 
 # ---------------------------------------------------------------------------
@@ -1117,38 +1563,24 @@ def overload_parity(dev):
 # ---------------------------------------------------------------------------
 
 
-def profile_chunk(label, cfg, n_slots, prompt_lens, steps, rng,
-                  freeze=False):
-    import numpy as np
+def profiled(label, run, what, steps):
+    """Time ``run()`` (after one warm call) without the profiler, then
+    under it: device time summed over ``torch.profiler``'s kernel rows
+    against the wall time; ``steps`` decode steps per call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core.substrate import calibrate_model
-    from repro_torch.launch.serve import Engine, Request
-    from repro_torch.models import init_params
-
-    params = init_params(cfg, seed=0, device="cuda")
-    if freeze:  # the frozen calibration of the serve CLI's --imc-policy
-        ref = np.random.default_rng(1).integers(0, cfg.vocab_size,
-                                                (2, max(prompt_lens)))
-        cfg = calibrate_model(cfg, params, [ref])
-    rnp = np.random.default_rng(0)
-    engine = Engine(cfg, params, n_slots, max(prompt_lens) + 4 * steps + 8,
-                    rng=rng, max_chunk=steps)
-    reqs = [Request(rid=i, prompt=rnp.integers(0, cfg.vocab_size, n),
-                    max_new=4 * steps) for i, n in enumerate(prompt_lens)]
-    engine.admit_pending(reqs)
-    engine.decode_chunk(steps)  # warm: every shape of the chunk seen once
+    run()  # warm: every shape of the call seen once
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    engine.decode_chunk(steps)
+    run()
     torch.cuda.synchronize()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.decode_chunk(steps)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device kernels only: operator rows repeat their kernels' time
@@ -1159,15 +1591,73 @@ def profile_chunk(label, cfg, n_slots, prompt_lens, steps, rng,
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
     paged = [r for r in rows if "paged_" in r[2]]  # split and combine passes
-    (OUT / f"profile_{label}.txt").write_text(prof.key_averages().table(
-        sort_by="self_device_time_total", row_limit=40))
+    (OUT / f"profile_{label.replace(' ', '_')}.txt").write_text(
+        prof.key_averages().table(sort_by="self_device_time_total",
+                                  row_limit=40))
     top = "; ".join(f"{k[:48]} {ms:.2f} ms x{n}" for ms, n, k in rows[:6])
-    say("profile", f"{label}: {steps}-step chunk, {n_slots} slots: "
-        f"{plain_wall_ms / steps:.2f} ms/step without the profiler; with it "
-        f"wall {wall_ms:.1f} ms, device kernels {busy_ms:.1f} ms (busy "
-        f"share {busy_ms / wall_ms:.3f}); paged attention "
-        f"{sum(r[0] for r in paged):.2f} ms over "
+    say("profile", f"{label}: {what}: {plain_wall_ms / steps:.2f} ms/step "
+        f"without the profiler; with it wall {wall_ms:.1f} ms, device "
+        f"kernels {busy_ms:.1f} ms (busy share {busy_ms / wall_ms:.3f}); "
+        f"paged attention {sum(r[0] for r in paged):.2f} ms over "
         f"{max((r[1] for r in paged), default=0)} launches; top: {top}")
+
+
+def profile_chunk(label, cfg, n_slots, prompt_lens, steps, rng,
+                  freeze=False, sampled=False):
+    """One decode chunk of ``n_slots`` requests; ``sampled``: every chunk
+    shadow-recorded and checked by a drift monitor (no swaps)."""
+    import numpy as np
+
+    from repro_torch.core.substrate import calibrate_model
+    from repro_torch.launch.serve import Engine, Request
+    from repro_torch.models import init_params
+    from repro_torch.runtime.drift import DriftConfig, DriftMonitor
+
+    params = init_params(cfg, seed=0, device="cuda")
+    if freeze:  # the frozen calibration of the serve CLI's --imc-policy
+        ref = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                                (2, max(prompt_lens)))
+        cfg = calibrate_model(cfg, params, [ref])
+    monitor = (DriftMonitor(DriftConfig(sample_every=1, check_every=1,
+                                        auto_swap=False))
+               if sampled else None)
+    rnp = np.random.default_rng(0)
+    engine = Engine(cfg, params, n_slots, max(prompt_lens) + 4 * steps + 8,
+                    rng=rng, max_chunk=steps, drift_monitor=monitor)
+    reqs = [Request(rid=i, prompt=rnp.integers(0, cfg.vocab_size, n),
+                    max_new=4 * steps) for i, n in enumerate(prompt_lens)]
+    engine.admit_pending(reqs)
+    profiled(label, lambda: engine.decode_chunk(steps),
+             f"{steps}-step chunk, {n_slots} slots", steps)
+
+
+def profile_warm(cfg, tail=24):
+    """One warm prefix admission beside seven slots mid-generation: a
+    256-token cached prefix and a ``tail``-token suffix, prefilled as
+    ``tail`` one-active-row decode steps."""
+    import numpy as np
+
+    from repro_torch.launch.serve import Engine, Request
+    from repro_torch.models import init_params
+
+    params = init_params(cfg, seed=0, device="cuda")
+    rnp = np.random.default_rng(0)
+    shared = rnp.integers(0, cfg.vocab_size, 256)
+
+    def request(rid, max_new):
+        return Request(rid=rid, max_new=max_new, prompt=np.concatenate(
+            [shared, rnp.integers(0, cfg.vocab_size, tail)]))
+
+    engine = Engine(cfg, params, 8, 512 + 64, max_chunk=8, prefix_cache=True)
+    engine.admit_pending([request(i, 64) for i in range(7)])
+    engine.decode_chunk(8)
+    rids = iter(range(7, 100))
+    hits = engine.prefix_hits
+    profiled("prefix warm admission",
+             lambda: engine.admit_pending([request(next(rids), 1)]),
+             f"{tail}-token suffix beside 7 busy slots", tail)
+    if engine.prefix_hits - hits != 3:
+        raise AssertionError("the profiled admissions were not warm")
 
 
 def phase_profile():
@@ -1180,15 +1670,18 @@ def phase_profile():
     cfg = configs.get("musicgen-medium")
     profile_chunk("digital", cfg, 8, [16, 512, 64, 300, 128, 33, 480, 256],
                   8, None)
-    cfg = cfg.replace(imc=IMCConfig(mode="imc_bitserial", bx=7, bw=7,
-                                    v_wl=0.7))
-    profile_chunk("imc_bitserial", cfg, 4, [5, 9, 32, 4], 4,
+    profile_warm(cfg)
+    bitserial = cfg.replace(imc=IMCConfig(mode="imc_bitserial", bx=7, bw=7,
+                                          v_wl=0.7))
+    profile_chunk("imc_bitserial", bitserial, 4, [5, 9, 32, 4], 4,
                   prng.derive_seed(0, 7))
     # the overload serve's substrate: ladder level 0 of --degrade, frozen
     pt = optimize(n=512, snr_t_target_db=26.0, kinds=("qr",))
-    cfg = cfg.replace(imc=substrate_for_design(pt))
-    profile_chunk("imc_analytic", cfg, 8, [5, 9, 32, 4, 17, 6, 12, 8], 4,
-                  None, freeze=True)
+    analytic = cfg.replace(imc=substrate_for_design(pt))
+    lens = [5, 9, 32, 4, 17, 6, 12, 8]
+    profile_chunk("imc_analytic", analytic, 8, lens, 4, None, freeze=True)
+    profile_chunk("imc_analytic sampled", analytic, 8, lens, 4, None,
+                  freeze=True, sampled=True)
 
 
 def phase_tiles(dev):

@@ -179,6 +179,16 @@ def linear(w, x, cfg=DIGITAL, rng: Optional[int] = None, bias=None,
         rec.observe(site or substrate_lib.DEFAULT_SITE, x, w, y=y)
         return y if bias is None else y + bias
 
+    # passive shadow observation (online drift monitoring): the real
+    # substrate path below runs unchanged; the recorder is fed the closest
+    # pre-ADC proxy, the fakequant product for fakequant and analytic and
+    # the kernel output for bit-serial, as in the reference
+    shadow = substrate_lib.active_shadow_recorder()
+
+    def _shadow_note(y_obs):
+        if shadow is not None:
+            shadow.observe(site or substrate_lib.DEFAULT_SITE, x, w, y=y_obs)
+
     stats = sub.site_stats(site)  # None => dynamic per-batch statistics
     if stats is None:
         x_max, w_max = _dynamic_max(x), _dynamic_max(w)
@@ -189,6 +199,7 @@ def linear(w, x, cfg=DIGITAL, rng: Optional[int] = None, bias=None,
         xq = _fq_ste(x, cfg.bx, cfg.x_signed, x_max)
         wq = _fq_ste(w, cfg.bw, True, w_max)
         y = _matmul(xq, wq)
+        _shadow_note(y)
         return y if bias is None else y + bias
 
     if cfg.mode == "imc_analytic":
@@ -196,6 +207,7 @@ def linear(w, x, cfg=DIGITAL, rng: Optional[int] = None, bias=None,
         xq = _fq_ste(x, cfg.bx, cfg.x_signed, x_max)
         wq = _fq_ste(w, cfg.bw, True, w_max)
         y = _matmul(xq, wq)
+        _shadow_note(y)
         if stats is None:
             sigma_yo = y.detach().std(unbiased=False) + 1e-9
         else:
@@ -222,6 +234,7 @@ def linear(w, x, cfg=DIGITAL, rng: Optional[int] = None, bias=None,
         x2 = x.reshape(-1, n)
         y = kops.imc_matmul(x2, w, mcfg, seed=rng, x_max=x_max, w_max=w_max)
         y = y.reshape(*lead, w.shape[-1]).to(x.dtype)
+        _shadow_note(y)
         return y if bias is None else y + bias
 
     raise ValueError(f"unknown IMC mode {cfg.mode!r}")

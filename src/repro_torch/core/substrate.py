@@ -16,9 +16,11 @@ Calibration stats are running maxima (``x_max`` / ``w_max`` max-|value|,
 ``sigma_yo`` the max per-row output std), so they are invariant to batch
 order and zero-row padding, and a :class:`Calibration` round-trips through
 JSON in the JAX reference's format.  In PyTorch there is nothing to trace:
-the recorder reads concrete values, and a calibration swap in the engine is a
-plain attribute update between decode chunks.  Shadow recording (online drift
-monitoring) waits for the port of ``runtime.drift``.
+the recorder keeps its running maxima as device tensors and reads them once,
+and a calibration swap in the engine is a plain attribute update between
+decode chunks, so within a chunk every row quantizes against one
+calibration.  :func:`shadow_recording` observes live serve traffic for drift
+(``runtime.drift``) without changing what executes.
 
 :func:`substrate_for_design` turns a ``core.design`` design point into the
 substrate that executes it (QS points run bit-serial planes, QR and CM
@@ -96,10 +98,18 @@ class Calibration:
 
 class CalibrationRecorder:
     """Accumulates per-site running-max stats during a calibration pass
-    (activate with :func:`recording`; ``imc_linear.linear`` feeds it)."""
+    (activate with :func:`recording`) or a shadow-sampled serve chunk
+    (:func:`shadow_recording`); ``imc_linear.linear`` feeds it.
+
+    Observations stay on their device: each site keeps a float32
+    ``(x_max, w_max, sigma_yo)`` running-max tensor, and :meth:`finalize`
+    reads them to the host once.  Max commutes with the widening to float64
+    and with the ``+ 1e-9``, so the result equals reading every observation
+    at once."""
 
     def __init__(self):
         self._acc: Dict[str, SiteStats] = {}
+        self._dev: Dict[str, torch.Tensor] = {}
 
     def note(self, site: str, stats: SiteStats):
         prev = self._acc.get(site)
@@ -107,26 +117,41 @@ class CalibrationRecorder:
 
     def observe(self, site: str, x, w, y=None):
         """Record one (x, w) observation of ``site``; ``y`` defaults to
-        ``x @ w``.  All-zero rows of ``x`` change no stat."""
+        ``x @ w``.  All-zero rows of ``x`` change no stat.  No host sync."""
         with torch.no_grad():
             if y is None:
                 y = torch.matmul(x, w)
-            x_max = float(x.abs().max())
-            w_max = float(w.abs().max())
-            sigma = float(y.reshape(-1, y.shape[-1]).to(torch.float32)
-                          .std(dim=-1, unbiased=False).max())
-        self.note(site, SiteStats(x_max=x_max + 1e-9, w_max=w_max + 1e-9,
-                                  sigma_yo=sigma + 1e-9))
+            f32 = torch.float32
+            stats = torch.stack([
+                x.detach().abs().max().to(f32),
+                w.detach().abs().max().to(f32),
+                y.detach().reshape(-1, y.shape[-1]).to(f32)
+                .std(dim=-1, unbiased=False).max()])
+            prev = self._dev.get(site)
+            self._dev[site] = (stats if prev is None
+                               else torch.maximum(prev, stats))
 
     def finalize(self) -> Calibration:
         """Per-site entries plus the ``"*"`` merge of every site."""
         entries = dict(self._acc)
+        for site, t in self._dev.items():
+            x_max, w_max, sigma = t.tolist()
+            st = SiteStats(x_max=x_max + 1e-9, w_max=w_max + 1e-9,
+                           sigma_yo=sigma + 1e-9)
+            entries[site] = (st if site not in entries
+                             else entries[site].merge(st))
         if entries and DEFAULT_SITE not in entries:
             merged = None
             for st in entries.values():
                 merged = st if merged is None else merged.merge(st)
             entries[DEFAULT_SITE] = merged
         return Calibration(tuple(entries.items()))
+
+    def reset(self):
+        """Drop the accumulated stats in place (the instance stays the one
+        its monitor and engine hold)."""
+        self._acc.clear()
+        self._dev.clear()
 
 
 _ACTIVE = threading.local()
@@ -145,6 +170,30 @@ def recording(recorder: CalibrationRecorder):
         yield recorder
     finally:
         _ACTIVE.recorder = prev
+
+
+def active_shadow_recorder() -> Optional[CalibrationRecorder]:
+    return getattr(_ACTIVE, "shadow", None)
+
+
+@contextlib.contextmanager
+def shadow_recording(recorder: CalibrationRecorder):
+    """Passively observe every non-digital ``imc_linear.linear`` call into
+    ``recorder`` WITHOUT changing execution.
+
+    Unlike :func:`recording` (which runs the calibration-pass fakequant
+    proxy in place of the real substrate path), a shadow-observed forward
+    runs its real substrate path unchanged - same ops, bit-identical outputs
+    - and only adds the recorder's running-max reductions on the device.
+    This is what lets the serve engine sample live traffic for drift
+    detection (``runtime.drift``) without breaking the frozen-policy
+    batch-invariance contract."""
+    prev = active_shadow_recorder()
+    _ACTIVE.shadow = recorder
+    try:
+        yield recorder
+    finally:
+        _ACTIVE.shadow = prev
 
 
 # ---------------------------------------------------------------------------

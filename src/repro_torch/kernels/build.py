@@ -113,3 +113,15 @@ def library(name: str) -> ctypes.CDLL:
 
 def error_string(name: str, err: int) -> str:
     return f"{err} ({library(name).kernel_error_string(err).decode()})"
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel launch the card refused (a nonzero status from a kernel's C
+    entry point).  Never transient: ``runtime.fault`` does not retry it."""
+
+
+def launch_failed(name: str, err: int) -> KernelLaunchError:
+    """The error a wrapper raises when kernel library ``name`` returns the
+    nonzero launch status ``err``."""
+    return KernelLaunchError(f"{name} kernel launch failed: "
+                             f"{error_string(name, err)}")

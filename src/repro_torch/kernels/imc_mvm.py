@@ -155,8 +155,7 @@ def bitserial_cuda(x_codes, w_codes, w_gain, spec: BitSerialSpec,
     err = build.library("bitserial").imc_bitserial_matmul(
         *bitserial_c_args(x8, w8, gain, out, spec, rows, seed))
     if err != 0:
-        raise RuntimeError("bitserial kernel launch failed: "
-                           f"{build.error_string('bitserial', err)}")
+        raise build.launch_failed("bitserial", err)
     bitserial_cuda.launches += 1
     if gain is not None:  # of them, launches of the gain instantiation
         bitserial_cuda.gain_launches += 1
@@ -209,8 +208,7 @@ def analytic_cuda(x, w_codes, spec: AnalyticSpec, seed: Optional[int] = None):
         ctypes.c_float(2.0 * spec.y_clip / 2.0**spec.b_adc),
         ctypes.c_float(-half), ctypes.c_float(half - 1), stream)
     if err != 0:
-        raise RuntimeError("analytic kernel launch failed: "
-                           f"{build.error_string('analytic', err)}")
+        raise build.launch_failed("analytic", err)
     analytic_cuda.launches += 1
     return out
 
@@ -306,8 +304,7 @@ def analytic_int8_cuda(x8, w8, sigma_yo, spec: AnalyticSpec,
         ctypes.c_float(2.0 * spec.y_clip / 2.0**spec.b_adc),
         ctypes.c_float(-half), ctypes.c_float(half - 1), stream)
     if err != 0:
-        raise RuntimeError("analytic int8 kernel launch failed: "
-                           f"{build.error_string('analytic_int8', err)}")
+        raise build.launch_failed("analytic_int8", err)
     analytic_int8_cuda.launches += 1
     return out
 

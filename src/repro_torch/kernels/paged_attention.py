@@ -231,8 +231,7 @@ def paged_attention_cuda(q, k_new, v_new, pk, pv, bt, pos_b, active, *,
         ctypes.c_float(0.0 if softcap is None else softcap),
         int(softcap is not None), stream)
     if err != 0:
-        raise RuntimeError(f"paged_attention kernel launch failed: "
-                           f"{build.error_string('paged_attention', err)}")
+        raise build.launch_failed("paged_attention", err)
     paged_attention_cuda.launches += 1
     return ctx, pk, pv
 

@@ -43,19 +43,46 @@ Engine design (the PyTorch counterpart of ``repro.launch.serve.Engine``):
                        (``PressureController`` -> ``swap_substrate``).  Time
                        is a ``VirtualClock`` in decode-step units, so every
                        SLO metric is a deterministic function of the seed.
+  prefix sharing       with ``prefix_cache=True`` a radix index
+                       (``runtime.prefix_cache``) maps full-block token
+                       chunks to the pool blocks that hold their K/V.  A
+                       head request whose prompt starts with a cached chain
+                       links those blocks into its block-table row (refcounts
+                       in the allocator) and prefills only the uncached
+                       suffix, as a teacher-forced loop of decode steps with
+                       one active row.  A fully cached prompt re-feeds its
+                       last token into a private copy of the last shared
+                       block (copy-on-write).  Idle cached blocks are evicted
+                       LRU leaf-first when the free list runs short.
+  drift monitoring     with a ``runtime.drift.DriftMonitor`` (frozen
+                       substrates only), every Nth decode chunk / prefill
+                       group runs under ``core.substrate.shadow_recording``:
+                       outputs unchanged, running maxima kept on the device.
+                       At the monitor's cadence the detector reads them and
+                       a drifted report hot-swaps a refreshed calibration
+                       between chunks (``swap_calibration``).
+  failure isolation    a transient device error (``runtime.fault``) on a
+                       prefill group, a warm prefill or a decode chunk is
+                       retried once with the same call on the same device.
+                       If it persists, a batched group re-admits each member
+                       alone (a poison row fails alone), a warm admission
+                       fails its request, and a decode chunk fails only the
+                       requests in flight.  Kernel launch or build failures
+                       are not transient: they propagate.
 
 Greedy sampling.  Noise seeds are integers (``rng``); with a frozen
-calibration and ``rng=None`` the batched engine equals sequential execution.
-Prefix caching, drift monitoring, fault retry and tensor-parallel meshes are
-not ported yet: their flags raise.
+calibration and ``rng=None`` the batched engine equals sequential execution,
+and a warm admission equals a cold one.  Tensor-parallel meshes are not
+ported yet: ``--mesh`` raises.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import logging
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -70,6 +97,8 @@ from repro_torch.models import (
     prefill,
     resolve_device,
 )
+from repro_torch.runtime import fault as fault_lib
+from repro_torch.runtime.prefix_cache import PrefixCache
 
 log = logging.getLogger("repro_torch.serve")
 
@@ -87,7 +116,7 @@ class Request:
     t_submit: Optional[float] = None
     t_first: Optional[float] = None  # first generated token on the host
     error: Optional[str] = None
-    error_kind: Optional[str] = None  # "admission" | "shed"
+    error_kind: Optional[str] = None  # admission|prefill|decode|shed
     # SLO workload metadata (runtime.workload): virtual arrival time,
     # per-class deadlines (relative to arrival / between tokens), class
     arrive_at: Optional[float] = None
@@ -245,13 +274,24 @@ class Engine:
     ``launch.metering.DPMeter``) counts billed work; ``clock`` (a
     ``runtime.workload.VirtualClock``) makes admission and decode advance
     virtual time and stamp it on requests instead of the host clock.
+    ``drift_monitor`` (a ``runtime.drift.DriftMonitor``, frozen substrates
+    only) shadow-samples chunks; ``drift_pause_depth`` pauses the sampling
+    while the serve loop's queue is deeper.  ``failure_injector(phase,
+    info)`` is called right before the device work of a prefill
+    (``"prefill"``, the rids) or a decode chunk (``"decode"``, the chunk
+    index); raising there simulates a device error.  ``prefix_cache``
+    enables prefix-sharing admission.
     """
 
     def __init__(self, cfg, params, batch_slots: int, cache_len: int,
                  rng: Optional[int] = None, max_chunk: int = 8,
                  block_size: int = DEFAULT_BLOCK,
                  kv_blocks: Optional[int] = None, meter=None,
-                 alloc_policy: str = "lazy", clock=None):
+                 alloc_policy: str = "lazy", clock=None,
+                 drift_monitor=None,
+                 failure_injector: Optional[Callable[[str, Any], None]] = None,
+                 drift_pause_depth: Optional[int] = None,
+                 prefix_cache: bool = False):
         if any(k != "attn" for k in tuple(cfg.pattern) + tuple(cfg.tail_kinds)):
             raise NotImplementedError(
                 f"pattern {cfg.pattern} is not ported yet (ROADMAP)")
@@ -266,6 +306,14 @@ class Engine:
         self.meter = meter
         if meter is not None and getattr(meter, "substrate", None) is None:
             meter.substrate = self.substrate
+        if drift_monitor is not None and self.calibration is None:
+            raise ValueError(
+                "drift monitoring requires a frozen-policy substrate "
+                "(there are no frozen ranges to compare shadow stats "
+                "against)")
+        self._drift = drift_monitor
+        self.drift_pause_depth = drift_pause_depth
+        self.failure_injector = failure_injector
         self.clock = clock
         # the SLO serve loop publishes its queue length here each tick
         self.queue_depth = 0
@@ -282,6 +330,20 @@ class Engine:
             kv_blocks = batch_slots * self.max_blocks + 1
         self.alloc = BlockAllocator(kv_blocks)
         self.alloc_policy = alloc_policy
+        # every per-request KV byte lives in the paged pool (attention-only
+        # patterns), so linking blocks reconstructs a cached prefix exactly
+        self.prefix: Optional[PrefixCache] = (
+            PrefixCache(block_size) if prefix_cache else None)
+        # prefix-sharing counters (a miss is a cold admission with the cache
+        # on)
+        self.prefix_lookups = 0
+        self.prefix_hits = 0
+        self.prefix_hit_tokens = 0
+        self.prefix_saved_tokens = 0
+        self.cow_copies = 0
+        self.prefix_evictions = 0
+        # decode steps run by warm admissions' suffix prefills
+        self.warm_steps = 0
 
         self.slots: List[Optional[Request]] = [None] * batch_slots
         self._slot_blocks: List[List[int]] = [[] for _ in range(batch_slots)]
@@ -305,6 +367,7 @@ class Engine:
         self.prefill_calls = 0
         self.prefill_rows = 0
         self.failed_requests = 0
+        self.decode_failures = 0
         self.shed_requests = 0
         self.preempt_count = 0
         self.substrate_swaps = 0
@@ -337,6 +400,20 @@ class Engine:
             return None
         self._key_count += 1
         return prng.derive_seed(self.rng, self._key_count)
+
+    @property
+    def calibration(self) -> Optional[substrate_lib.Calibration]:
+        """The live frozen calibration (None under a dynamic policy)."""
+        if self.substrate.policy != "frozen":
+            return None
+        return self.substrate.calibration
+
+    def _shadow(self, on: bool):
+        """The context a sampled call runs in: shadow recording into the
+        drift monitor's recorder, or nothing."""
+        if not on:
+            return contextlib.nullcontext()
+        return substrate_lib.shadow_recording(self._drift.recorder)
 
     @property
     def active(self) -> int:
@@ -376,8 +453,9 @@ class Engine:
 
     def fail_request(self, req: Request, error: str,
                      kind: str = "admission"):
-        """Retire an unadmitted request with a per-request error status
-        (``kind`` "shed" is the scheduler's load-shedding path)."""
+        """Retire an unadmitted request with a per-request error status;
+        ``kind`` is "admission", "prefill", "decode" or "shed" (the
+        scheduler's load-shedding path)."""
         req.done = True
         req.error = error
         req.error_kind = kind
@@ -405,6 +483,19 @@ class Engine:
             if err is not None:
                 self.fail_request(pending.pop(0), err)
                 continue
+            if self.prefix is not None:
+                # a prefix-hit head admits alone through the warm path; only
+                # the head is considered, so FIFO order holds
+                state = self._try_admit_prefix(pending[0], free_slots[0])
+                if state == "admitted":
+                    admitted.append(pending.pop(0))
+                    continue
+                if state == "defer":
+                    break  # the head waits for blocks or evictions
+                if state == "failed":
+                    pending.pop(0)  # retired through fail_request
+                    continue
+                # "miss": the cold batched path below
             bucket = self._bucket(pending[0])
             group: List[Request] = []
             reserved = 0
@@ -414,20 +505,27 @@ class Engine:
                 if not self._fits(r):
                     break
                 need = self._blocks_needed(r)
-                if reserved + need > self.alloc.free_count:
+                # idle cached prefix blocks count as capacity: _alloc_blocks
+                # evicts them when the free list runs short
+                if reserved + need > (self.alloc.free_count
+                                      + self.alloc.evictable_count):
                     break
                 group.append(r)
                 reserved += need
             if not group:
                 break  # head-of-line request waits for blocks to free
-            self._admit_group(group, free_slots[: len(group)], bucket)
+            ok = self._admit_group(group, free_slots[: len(group)], bucket)
             del pending[: len(group)]
-            admitted.extend(group)
+            admitted.extend(ok)
         return admitted
 
     @torch.inference_mode()
     def _admit_group(self, group: List[Request], slot_ids: List[int],
-                     bucket: int):
+                     bucket: int) -> List[Request]:
+        """Prefill and insert one admitted group; returns the requests that
+        reached a slot.  A transient device error is retried once; if the
+        batched prefill still fails, its blocks are freed and each member
+        retries alone, so a poison request fails alone."""
         now = self._now()
         r_real = len(group)
         r_pad = 1
@@ -442,17 +540,50 @@ class Engine:
             pvec = req.full_prompt
             toks[r, : len(pvec)] = pvec
             true_len[r] = len(pvec)
-            blocks = self.alloc.alloc(self._blocks_needed(req))
+            blocks = self._alloc_blocks(self._blocks_needed(req))
             if blocks is None:
                 raise RuntimeError("admission reserved blocks it cannot get")
             self._slot_blocks[slot_ids[r]] = blocks
             bt_rows[r, : len(blocks)] = blocks
+        shadow = (self._drift is not None and not self._drift_paused()
+                  and self._drift.take_prefill_sample())
+        rids = tuple(r.rid for r in group)
         dev = self.device
-        logits, cache1 = prefill(
-            self.params, self.cfg, torch.as_tensor(toks, device=dev),
-            cache_len=bucket, rng=self._next_key(),
-            true_len=torch.as_tensor(true_len, device=dev))
-        tok0 = torch.argmax(logits[:, -1], dim=-1)
+
+        def run_pf():
+            if self.failure_injector is not None:
+                self.failure_injector("prefill", rids)
+            with self._shadow(shadow):
+                logits, cache1 = prefill(
+                    self.params, self.cfg, torch.as_tensor(toks, device=dev),
+                    cache_len=bucket, rng=self._next_key(),
+                    true_len=torch.as_tensor(true_len, device=dev))
+            return torch.argmax(logits[:, -1], dim=-1), cache1
+
+        try:
+            tok0, cache1 = fault_lib.call_with_retries(
+                run_pf, 1, retryable=fault_lib.is_transient_device_error,
+                describe=f"prefill group rids={list(rids)}", logger=log)
+        except Exception as e:
+            if not fault_lib.is_transient_device_error(e):
+                raise  # kernel and programming faults surface
+            for sid in slot_ids:  # nothing was inserted: free the blocks
+                if self._slot_blocks[sid]:
+                    self.alloc.free(self._slot_blocks[sid])
+                    self._slot_blocks[sid] = []
+            if r_real == 1:
+                self.fail_request(group[0],
+                                  f"prefill failed after retry: {e!r}",
+                                  kind="prefill")
+                return []
+            log.warning("batched prefill of %d requests failed (%r); "
+                        "re-admitting each alone to isolate the poison row",
+                        r_real, e)
+            ok: List[Request] = []
+            for r, req in enumerate(group):
+                ok.extend(self._admit_group([req], [slot_ids[r]],
+                                            self._bucket(req)))
+            return ok
         self._insert(cache1, slot_ids, bt_rows, tok0[:r_real],
                      true_len[:r_real])
         self.prefill_calls += 1
@@ -461,6 +592,8 @@ class Engine:
             # bucket padding is billed work; pow2 pad rows are not
             self.meter.note_prefill(r_real, bucket,
                                     [len(r.prompt) for r in group])
+            if shadow:
+                self.meter.note_shadow_sample()
         tok0_host = tok0.cpu().numpy()  # one sync per GROUP
         if self.clock is not None:
             # one bucket's worth of token-forwards (rows run in parallel)
@@ -472,6 +605,13 @@ class Engine:
             self._slot_pos[sid] = int(true_len[r])
             self._slot_seq[sid] = self._admit_seq
             self._admit_seq += 1
+            if self.prefix is not None:
+                # a cold admission under an enabled cache is a miss; its
+                # full prompt blocks are indexed for later sharers
+                self.prefix_lookups += 1
+                if self.meter is not None:
+                    self.meter.note_prefix_miss()
+                self._register_prefix(req, sid)
             req.out.append(int(tok0_host[r]))
             if req.t_first is None:  # a resumed request keeps its real TTFT
                 req.t_first = t_first
@@ -479,6 +619,7 @@ class Engine:
                 req.token_times.append(t_first)
             if len(req.out) >= req.effective_max:
                 self._retire(sid)
+        return list(group)
 
     def _insert(self, cache1, slot_ids, bt_rows, tok0, true_len):
         """Write a prefill group into the engine cache: each row's prompt K/V
@@ -505,12 +646,20 @@ class Engine:
         self.last_token[slots] = tok0
         self.pos[slots] = torch.as_tensor(true_len, device=dev)
 
-    def _retire(self, i: int):
+    def _retire(self, i: int, error: Optional[str] = None,
+                kind: str = "decode"):
         req = self.slots[i]
         req.done = True
+        req.error = error
         self.slots[i] = None
         self._slot_pos[i] = 0
         self.finished.append(req)
+        if error is not None:
+            req.error_kind = kind
+            self.failed_requests += 1
+            if self.meter is not None:
+                self.meter.note_request_failure()
+            log.warning("request %d failed in slot %d: %s", req.rid, i, error)
         if self._slot_blocks[i]:
             # the stale device block table keeps pointing at these blocks;
             # that is safe because inactive rows write to the garbage block
@@ -562,14 +711,14 @@ class Engine:
             deficit = need - len(self._slot_blocks[i])
             if deficit <= 0:
                 continue
-            got = self.alloc.alloc(deficit)
+            got = self._alloc_blocks(deficit)
             while got is None:
                 victim = self._pick_victim(i)
                 if victim is None:
                     self._preempt(i)
                     break
                 self._preempt(victim)
-                got = self.alloc.alloc(deficit)
+                got = self._alloc_blocks(deficit)
             if got is None:
                 continue
             have = len(self._slot_blocks[i])
@@ -582,12 +731,208 @@ class Engine:
         for eng in self._paged_layers():
             eng["bt"][:, s, lg] = ph.to(torch.int32)
 
+    # -- prefix sharing --------------------------------------------------------
+    def _alloc_blocks(self, n: int) -> Optional[List[int]]:
+        """``alloc`` under eviction pressure: when the free list runs short,
+        reclaim idle cached prefix blocks until the allocation fits or
+        nothing is evictable."""
+        if n == 0:
+            return []
+        blocks = self.alloc.alloc(n)
+        while blocks is None and self._evict_one():
+            blocks = self.alloc.alloc(n)
+        return blocks
+
+    def _evict_one(self) -> bool:
+        """Evict ONE idle cached block: the least-recently-used leaf of the
+        radix index whose block holds no reference.  Leaf-first keeps every
+        remaining chain reachable."""
+        if self.prefix is None:
+            return False
+        for node in self.prefix.leaves_lru():
+            if self.alloc.is_evictable(node.block):
+                self.prefix.remove(node)
+                self.alloc.evict(node.block)
+                self.prefix_evictions += 1
+                return True
+        return False
+
+    def _register_prefix(self, req: Request, sid: int):
+        """Index the admitted request's full prompt blocks for later
+        sharers.  Only full blocks enter the index: every later write of
+        this slot lands at a position past the prompt."""
+        n_full = len(req.full_prompt) // self.block
+        chain = self._slot_blocks[sid][:n_full]
+        if n_full == 0 or len(chain) < n_full:
+            return
+        for b in self.prefix.insert(req.full_prompt, chain):
+            self.alloc.register_cached(b)
+
+    def _try_admit_prefix(self, req: Request, slot: int) -> str:
+        """Warm admission of a prefix-hit head request into ``slot``.
+
+        Links the longest cached chain of full blocks prefixing the (resume)
+        prompt into the slot's block-table row and prefills only the
+        uncached suffix (:meth:`_warm_prefill`).  At least one token is
+        always re-fed, so the last position's logits exist; when the whole
+        prompt is cached that re-feed writes inside the last shared block,
+        which is first copied into a private block (copy-on-write).
+
+        Returns "miss" (no cached prefix: the cold path), "defer" (a hit,
+        but blocks are short: the head waits), "failed" (a persistent
+        device error retired the request) or "admitted"."""
+        pvec = req.full_prompt
+        nodes = self.prefix.match(pvec)
+        if not nodes:
+            return "miss"
+        length = len(pvec)
+        bs = self.block
+        m = len(nodes)
+        start = min(bs * m, length - 1)  # always re-feed >= 1 token
+        t_true = length - start
+        cow = (start // bs) < m  # the re-feed lands in a shared block
+        keep = nodes[:-1] if cow else nodes
+        total = (self._blocks_total(req) if self.alloc_policy == "reserve"
+                 else -(-length // bs))
+        # retain every matched block (a copy-on-write source too) BEFORE
+        # allocating, so eviction pressure cannot reclaim one of them
+        matched = [n.block for n in nodes]
+        self.alloc.retain(matched)
+        fresh = self._alloc_blocks(total - len(keep))
+        if fresh is None:
+            self.alloc.free(matched)
+            return "defer"
+        blocks = [n.block for n in keep] + fresh
+        if req.t_submit is None:
+            req.t_submit = self._now()
+        if cow:
+            # private copy of the shared block; the suffix step overwrites
+            # only position ``length - 1``.  The source's extra reference
+            # drops once the copy is taken (it stays indexed)
+            self._cow(nodes[-1].block, fresh[0])
+            self.alloc.free([nodes[-1].block])
+            self.cow_copies += 1
+            if self.meter is not None:
+                self.meter.note_cow_copy()
+        bt_row = np.zeros((self.max_blocks,), np.int32)
+        bt_row[: len(blocks)] = blocks
+
+        def run_warm():
+            if self.failure_injector is not None:
+                self.failure_injector("prefill", (req.rid,))
+            return self._warm_prefill(slot, bt_row, pvec[start:], start,
+                                      self._next_key())
+
+        try:
+            last_token, pos, tok0 = fault_lib.call_with_retries(
+                run_warm, 1, retryable=fault_lib.is_transient_device_error,
+                describe=f"warm prefill rid={req.rid}", logger=log)
+        except Exception as e:
+            if not fault_lib.is_transient_device_error(e):
+                raise
+            # the slot is not active, so its linked table row is never
+            # written through; releasing the references unwinds the rest
+            self.alloc.free(blocks)
+            self.fail_request(req, f"warm prefill failed after retry: {e!r}",
+                              kind="prefill")
+            return "failed"
+        self.last_token, self.pos = last_token, pos
+        self._slot_blocks[slot] = blocks
+        self.slots[slot] = req
+        self._slot_pos[slot] = length
+        self._slot_seq[slot] = self._admit_seq
+        self._admit_seq += 1
+        self.prefill_calls += 1
+        self.prefill_rows += 1
+        self.prefix_lookups += 1
+        self.prefix_hits += 1
+        self.prefix_hit_tokens += start
+        self.warm_steps += t_true
+        cold_bucket = self._bucket(req)
+        self.prefix_saved_tokens += max(0, cold_bucket - t_true)
+        if self.meter is not None:
+            self.meter.note_prefix_admission(t_true, cold_bucket, start)
+        if self.clock is not None:
+            self.clock.advance(t_true * self.clock.prefill_token_cost)
+        # register BEFORE appending tok0: tok0's K/V is written when it is
+        # fed back on the first decode step
+        self._register_prefix(req, slot)
+        req.out.append(int(tok0))
+        t_first = self._now()
+        if req.t_first is None:
+            req.t_first = t_first
+        if self.clock is not None:
+            req.token_times.append(t_first)
+        if len(req.out) >= req.effective_max:
+            self._retire(slot)
+        log.info("prefix hit request %d: %d/%d tokens cached (%d blocks, "
+                 "suffix %d%s)", req.rid, start, length, m, t_true,
+                 ", CoW" if cow else "")
+        return "admitted"
+
+    @torch.inference_mode()
+    def _warm_prefill(self, slot: int, bt_row: np.ndarray, suffix,
+                      start: int, key: Optional[int]):
+        """The suffix prefill as teacher-forced decode steps: link the slot's
+        block-table row, start at ``start`` and feed the suffix one token a
+        step with only ``slot`` active (every other row is fed token 0 and
+        writes to the garbage block).  The tokens stay on the device.
+        Returns (last tokens, positions, the last step's argmax): exactly
+        the ``tok0`` a cold prefill of the whole prompt gives."""
+        dev = self.device
+        row = torch.as_tensor(bt_row, device=dev)
+        for eng in self._paged_layers():
+            eng["bt"][:, slot] = row
+        fed = torch.zeros((len(suffix), self.batch_slots), dtype=torch.int64,
+                          device=dev)
+        fed[:, slot] = torch.as_tensor(np.asarray(suffix), device=dev)
+        active = torch.zeros((self.batch_slots,), dtype=torch.bool,
+                             device=dev)
+        active[slot] = True
+        pos = self.pos.clone()
+        pos[slot] = start
+        for t in range(len(suffix)):
+            k = None if key is None else prng.derive_seed(key, t)
+            logits, _ = decode_step(self.params, self.cfg, fed[t],
+                                    dict(self.cache, pos=pos), rng=k,
+                                    active=active)
+            pos = torch.where(active, pos + 1, pos)
+        tok0 = torch.argmax(logits[slot, 0], dim=-1)
+        last_token = self.last_token.clone()
+        last_token[slot] = tok0
+        return last_token, pos, tok0
+
+    def _cow(self, src: int, dst: int):
+        """Copy one pool block's K/V across every paged layer: the device
+        half of copy-on-write (the table row is linked by the warm
+        prefill)."""
+        with torch.inference_mode():
+            for eng in self._paged_layers():
+                for pool_key in ("pk", "pv"):
+                    eng[pool_key][:, dst] = eng[pool_key][:, src]
+
+    def prefix_stats(self) -> Dict[str, Any]:
+        """The prefix-sharing scoreboard (host-side counters)."""
+        lookups = self.prefix_lookups
+        return {
+            "enabled": self.prefix is not None,
+            "lookups": lookups,
+            "hits": self.prefix_hits,
+            "hit_rate": round(self.prefix_hits / lookups, 4) if lookups
+            else 0.0,
+            "hit_tokens": self.prefix_hit_tokens,
+            "saved_billed_tokens": self.prefix_saved_tokens,
+            "cow_copies": self.cow_copies,
+            "evictions": self.prefix_evictions,
+            "cached_blocks": len(self.prefix) if self.prefix else 0,
+        }
+
     # -- online calibration ----------------------------------------------------
     def swap_calibration(self, calibration: substrate_lib.Calibration):
         """Install a refreshed frozen calibration between chunks.  It must
         carry the frozen calibration's site names."""
-        cur = self.substrate.calibration
-        if self.substrate.policy != "frozen" or cur is None:
+        cur = self.calibration
+        if cur is None:
             raise ValueError(
                 "swap_calibration requires a frozen-policy substrate")
         if calibration.site_names() != cur.site_names():
@@ -623,6 +968,29 @@ class Engine:
             if self.meter.substrate is old:
                 self.meter.substrate = sub
 
+    def _drift_paused(self) -> bool:
+        """Shadow sampling pauses while the serve loop reports a queue deeper
+        than ``drift_pause_depth``; the cadence resumes where it stopped."""
+        return (self.drift_pause_depth is not None
+                and self.queue_depth > self.drift_pause_depth)
+
+    def _maybe_check_drift(self):
+        """After a shadow-sampled chunk: run the detector at the monitor's
+        cadence and hot-swap the refreshed calibration on a drifted report
+        (between chunks, so the swap is atomic)."""
+        mon = self._drift
+        report = mon.check(self.calibration)
+        if report is None:
+            return
+        if self.meter is not None:
+            self.meter.note_drift_report(report.to_dict())
+        log.info("drift check %d: %s", mon.checks, report.summary_line())
+        if report.drifted and mon.cfg.auto_swap:
+            self.swap_calibration(mon.refreshed(self.calibration))
+            mon.note_swap()
+            log.info("hot-swapped refreshed calibration (swap %d) at sites "
+                     "%s", self.swap_count, list(report.drifted_sites))
+
     # -- decode ----------------------------------------------------------------
     def next_chunk(self) -> int:
         """Largest power-of-two chunk no active request overruns."""
@@ -654,7 +1022,13 @@ class Engine:
 
     def decode_chunk(self, n_steps: Optional[int] = None) -> np.ndarray:
         """Run ``n_steps`` decode steps; returns the (slots, T) token block,
-        the chunk's single device-to-host transfer."""
+        the chunk's single device-to-host transfer.
+
+        A transient device error is retried once: the engine's tokens and
+        positions change only when a chunk returns, and a re-run rewrites
+        the same K/V positions with the same values, so the retry is exact.
+        If the error persists, only the requests in flight retire with an
+        error status and the engine goes on."""
         if n_steps is None:
             n_steps = self.next_chunk()
         if n_steps <= 0:
@@ -662,12 +1036,37 @@ class Engine:
         self._ensure_blocks(n_steps)  # may preempt
         if self.active == 0:
             return np.zeros((self.batch_slots, 0), np.int32)
+        shadow = (self._drift is not None and not self._drift_paused()
+                  and self._drift.take_sample())
         active = torch.as_tensor([s is not None for s in self.slots],
                                  device=self.device)
-        block = self._run_chunk(n_steps, active, self._next_key())
+        key = self._next_key()
+
+        def run_chunk():
+            if self.failure_injector is not None:
+                self.failure_injector("decode", self.decode_calls)
+            with self._shadow(shadow):
+                return self._run_chunk(n_steps, active, key)
+
+        try:
+            block = fault_lib.call_with_retries(
+                run_chunk, 1, retryable=fault_lib.is_transient_device_error,
+                describe=f"decode chunk {self.decode_calls}", logger=log)
+        except Exception as e:
+            if not fault_lib.is_transient_device_error(e):
+                raise  # kernel and programming faults surface
+            self.decode_failures += 1
+            msg = f"decode chunk failed after retry: {e!r}"
+            log.warning("%s; failing %d in-flight requests", msg, self.active)
+            for i, req in enumerate(self.slots):
+                if req is not None:
+                    self._retire(i, error=msg)
+            return np.zeros((self.batch_slots, 0), np.int32)
         if self.meter is not None:
             # active slots at chunk start each ran n_steps token-forwards
             self.meter.note_decode(self.active, n_steps)
+            if shadow:
+                self.meter.note_shadow_sample()
         block = block.cpu().numpy()  # the one host transfer per chunk
         self.decode_calls += 1
         self.decode_steps += n_steps
@@ -692,6 +1091,8 @@ class Engine:
                     t_end - (take - 1 - j) * dt for j in range(take))
             if len(req.out) >= req.effective_max:
                 self._retire(i)
+        if shadow:
+            self._maybe_check_drift()
         return block
 
 
@@ -787,7 +1188,8 @@ def serve_workload(engine: Engine, wcfg, policy: str = "fifo",
                   else None)
     finished = serve_slo(engine, requests, policy=pol, controller=controller)
     summary = slo_summary(finished, elapsed=engine.clock.now,
-                          policy=pol.name)
+                          policy=pol.name, prefix_hits=engine.prefix_hits,
+                          cow_copies=engine.cow_copies)
     summary.update(
         preemptions=engine.preempt_count,
         shed=engine.shed_requests,
@@ -807,16 +1209,9 @@ class _Waits(argparse.Action):
         super().__init__(option_strings, dest, **kw)
 
     def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f"{option_string} is not ported to PyTorch yet "
-                     "(see ROADMAP: the prefix cache, drift, faults and "
-                     "meshes come in later slices)")
-
-
-_WAITING_FLAGS = (
-    "--recalibrate", "--drift-sample-every", "--drift-check-every",
-    "--inject-drift", "--drift-pause-depth", "--prefix-cache",
-    "--shared-prefix-len", "--prefix-dup", "--mesh",
-)
+        parser.error(f"{option_string} is not ported to PyTorch yet (see "
+                     "ROADMAP: tensor-parallel serving comes in a later "
+                     "slice)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -887,10 +1282,44 @@ def build_parser() -> argparse.ArgumentParser:
                          "(default) or the gather escape hatch")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
+    ap.add_argument("--recalibrate", action="store_true",
+                    help="online calibration (requires --imc-policy frozen): "
+                         "shadow-record a sample of live chunks, detect "
+                         "range drift with the one-sided test, and hot-swap "
+                         "a refreshed calibration between chunks")
+    ap.add_argument("--drift-sample-every", type=int, default=2,
+                    help="shadow-record every Nth decode chunk / prefill "
+                         "group (with --recalibrate)")
+    ap.add_argument("--drift-check-every", type=int, default=2,
+                    help="run the drift detector every Nth shadow sample")
+    ap.add_argument("--inject-drift", default=None, metavar="SCALE@REQS",
+                    help="drift-injection demo: serve the first REQS "
+                         "requests, then scale every mlp.wi weight by SCALE "
+                         "and serve the rest; prints the drift report and "
+                         "the post-swap SNR_T recovery table")
+    ap.add_argument("--drift-pause-depth", type=int, default=None,
+                    help="pause drift shadow sampling while the queue is "
+                         "deeper than this")
+    ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
+                    default=False,
+                    help="prefix-sharing paged KV: a radix index over token "
+                         "prefixes at block granularity links cached blocks "
+                         "into new requests' block tables (refcounted, "
+                         "copy-on-write); admission prefills only the "
+                         "uncached suffix.  Greedy tokens equal a cold run's "
+                         "under frozen calibration")
+    ap.add_argument("--shared-prefix-len", type=int, default=0,
+                    help="shared-system-prompt traffic: every prompt starts "
+                         "with this many common tokens (drawn once per run) "
+                         "followed by its own --prompt-len(s) tail; with "
+                         "--workload the prefixes come from per-class seeded "
+                         "pools instead")
+    ap.add_argument("--prefix-dup", type=int, default=4,
+                    help="with --workload and --shared-prefix-len: requests "
+                         "per distinct shared prefix within each class")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the parameters, prompts and noise")
-    for flag in _WAITING_FLAGS:
-        ap.add_argument(flag, action=_Waits, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh", action=_Waits, help=argparse.SUPPRESS)
     return ap
 
 
@@ -898,7 +1327,8 @@ def main(argv=None) -> dict:
     """Serve a seeded synthetic workload; returns a report with the finished
     requests, the engine, the host-clock throughput and TTFT, and (where
     asked for) the SLO summary (``"slo"``), the meter and its
-    ``EnergyReport``s (``"energy"``)."""
+    ``EnergyReport``s (``"energy"``), the drift monitor (``"monitor"``) and
+    its per-site SNR_T rows (``"snr_rows"``)."""
     ap = build_parser()
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
@@ -941,13 +1371,26 @@ def main(argv=None) -> dict:
         log.info("froze substrate calibration on a %s reference batch "
                  "(%d sites)", ref.shape,
                  len(cfg.imc.calibration.site_names()))
-    max_bucket = max(prefill_bucket(n, True, 10**9) for n in lens)
+    max_bucket = max(prefill_bucket(n + args.shared_prefix_len, True, 10**9)
+                     for n in lens)
     cache_len = max_bucket + args.gen + 8
     meter = None
     if args.energy_report:
         from repro_torch.launch.metering import DPMeter
 
         meter = DPMeter(configs.get(args.arch))
+    monitor = None
+    frozen0 = None
+    if args.recalibrate:
+        if not (args.imc_mode and args.imc_policy == "frozen"):
+            ap.error("--recalibrate requires --imc-mode and "
+                     "--imc-policy frozen")
+        from repro_torch.runtime import drift as drift_lib
+
+        monitor = drift_lib.DriftMonitor(drift_lib.DriftConfig(
+            sample_every=args.drift_sample_every,
+            check_every=args.drift_check_every))
+        frozen0 = cfg.imc.calibration
     clock = None
     if args.workload != "none":
         from repro_torch.runtime.workload import VirtualClock
@@ -956,7 +1399,10 @@ def main(argv=None) -> dict:
     engine = Engine(cfg, params, args.batch, cache_len, rng=rng,
                     max_chunk=args.chunk, block_size=args.block,
                     kv_blocks=args.kv_blocks, meter=meter,
-                    alloc_policy=args.alloc, clock=clock)
+                    alloc_policy=args.alloc, clock=clock,
+                    drift_monitor=monitor,
+                    drift_pause_depth=args.drift_pause_depth,
+                    prefix_cache=args.prefix_cache)
     summary = None
     t0 = time.perf_counter()
     if args.workload != "none":
@@ -965,18 +1411,36 @@ def main(argv=None) -> dict:
         wcfg = workload_lib.make_overload_config(
             n_requests=args.requests, seed=args.workload_seed,
             overload=args.overload, slots=args.batch, max_new=args.gen,
-            arrival=args.workload)
+            arrival=args.workload, prefix_len=args.shared_prefix_len,
+            prefix_dup=args.prefix_dup)
         ladder = (substrate_lib.substrate_ladder(base_pt, steps=2)
                   if base_pt is not None else None)
         finished, summary = serve_workload(engine, wcfg, args.slo_policy,
                                            ladder)
     else:
         rnp = np.random.default_rng(args.seed)
-        requests = [Request(rid=i, max_new=args.gen,
-                            prompt=rnp.integers(0, cfg.vocab_size,
-                                                lens[i % len(lens)]))
-                    for i in range(args.requests)]
-        finished = serve(engine, requests)
+        shared = (rnp.integers(0, cfg.vocab_size, args.shared_prefix_len)
+                  if args.shared_prefix_len else None)
+        requests = []
+        for i in range(args.requests):
+            tail = rnp.integers(0, cfg.vocab_size, lens[i % len(lens)])
+            prompt = tail if shared is None else np.concatenate([shared,
+                                                                 tail])
+            requests.append(Request(rid=i, prompt=prompt, max_new=args.gen))
+        if args.inject_drift:
+            scale_s, _, after_s = args.inject_drift.partition("@")
+            scale, after = float(scale_s), int(after_s or len(requests) // 2)
+            serve(engine, requests[:after])
+            # a weight-scale shift of every mlp.wi: it drifts w_max at mlp.wi
+            # and the activation range feeding mlp.wo (an embedding-scale
+            # shift would be normalized away before every site)
+            engine.params = _scale_wi(engine.params, scale)
+            log.info("injected mlp.wi weight-scale drift x%.2f after %d "
+                     "requests", scale, after)
+            serve(engine, requests[after:])
+            finished = engine.finished
+        else:
+            finished = serve(engine, requests)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
@@ -994,6 +1458,8 @@ def main(argv=None) -> dict:
         "slo": summary,
         "meter": meter,
         "energy": [],
+        "monitor": monitor,
+        "snr_rows": None,
     }
     log.info(
         "served %d requests on %s, %d tokens, %d decode chunks (%d steps), "
@@ -1007,6 +1473,34 @@ def main(argv=None) -> dict:
     if failed:
         log.warning("%d request(s) finished with an error: %s", len(failed),
                     failed)
+    if args.prefix_cache:
+        ps = engine.prefix_stats()
+        print(f"prefix cache: hit_rate={ps['hit_rate']:.2f} "
+              f"({ps['hits']}/{ps['lookups']} admissions), "
+              f"prefill tokens skipped={ps['hit_tokens']}, "
+              f"billed prefill tokens saved={ps['saved_billed_tokens']}, "
+              f"cow_copies={ps['cow_copies']}, "
+              f"evictions={ps['evictions']}, "
+              f"cached_blocks={ps['cached_blocks']}")
+    if monitor is not None:
+        from repro_torch.runtime import drift as drift_lib
+
+        c = monitor.counters()
+        print(f"online calibration: {c['shadow_samples']} shadow samples / "
+              f"{c['chunks_seen']} chunks, {c['drift_checks']} checks, "
+              f"{c['drift_events']} drift events, "
+              f"{c['calibration_swaps']} hot-swaps "
+              f"({engine.swap_count} applied)")
+        if monitor.last_report is not None:
+            print("last drift report: " + monitor.last_report.summary_line())
+        if monitor.last_observed is not None:
+            rows = drift_lib.site_snr_table(
+                frozen0, engine.calibration, monitor.last_observed,
+                bx=engine.substrate.imc.bx)
+            report["snr_rows"] = rows
+            print("per-site SNR_T (stale frozen vs post-swap vs "
+                  "fresh-frozen reference):")
+            print(drift_lib.format_snr_table(rows))
     if summary is not None:
         print(f"serve_slo [{args.workload} x{args.overload:g} overload, "
               f"policy={summary['policy']}, alloc={args.alloc}]:")
@@ -1034,7 +1528,26 @@ def main(argv=None) -> dict:
               f"{meter.prefill_pad_tokens}, decode tokens="
               f"{meter.decode_billed_tokens}):")
         print(format_report(report["energy"]))
+        if meter.prefix_saved_billed_tokens:
+            print(f"prefix-cache energy savings ("
+                  f"{meter.prefix_saved_billed_tokens} billed prefill "
+                  f"tokens avoided):")
+            for r in report["energy"]:
+                frac = r.saved_prefill_j / max(
+                    r.total_j + r.saved_prefill_j, 1e-30)
+                print(f"  {r.design.arch_kind:>4s} @ "
+                      f"{r.design.snr_t_db:5.1f} dB: "
+                      f"-{r.j_per_token_saved:.3e} J/token "
+                      f"({100 * frac:.1f}% of the cold bill)")
     return report
+
+
+def _scale_wi(p, scale: float):
+    """``p`` with every ``wi`` weight multiplied by ``scale``."""
+    if isinstance(p, dict):
+        return {k: (v * scale if k == "wi" else _scale_wi(v, scale))
+                for k, v in p.items()}
+    return p
 
 
 if __name__ == "__main__":

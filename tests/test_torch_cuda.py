@@ -410,3 +410,107 @@ def test_int8_analytic_asserts_on_a_code_outside_its_width(dev, corrupt):
     assert "out of range: no error" not in proc.stdout
     assert proc.returncode != 0
     assert "assert" in proc.stderr.lower(), proc.stderr[-2000:]
+
+
+# ---------------------------------------------------------------------------
+# the serve engine's prefix sharing and fault path on the card
+# ---------------------------------------------------------------------------
+
+
+def _smoke_engine(dev, **kw):
+    """musicgen-medium SMOKE in float32 with CPU-made weights moved to
+    ``dev`` (the CPU and CUDA generators draw different streams)."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import Engine
+    from repro_torch.models import init_params
+    from repro_torch.models.model import tree_map
+
+    cfg = configs.get_smoke("musicgen-medium")
+    params = tree_map(lambda t: t.to(dev),
+                      init_params(cfg, seed=0, device="cpu"))
+    return Engine(cfg, params, batch_slots=4, cache_len=48, max_chunk=4,
+                  **kw)
+
+
+def _warm_run(dev):
+    from repro_torch.launch.serve import Request, serve
+
+    eng = _smoke_engine(dev, prefix_cache=True)
+    rnp = np.random.default_rng(3)
+    shared = rnp.integers(0, eng.cfg.vocab_size, 16)
+    reqs = [Request(rid=i, max_new=5, prompt=np.concatenate(
+        [shared, rnp.integers(0, eng.cfg.vocab_size, n)]))
+        for i, n in enumerate((5, 9, 3))]
+    serve(eng, reqs[:1])
+    serve(eng, reqs[1:])
+    copies = []
+    cow = eng._cow
+
+    def recorded(src, dst):
+        copies.append((src, dst))
+        cow(src, dst)
+
+    eng._cow = recorded
+    dup = Request(rid=3, prompt=shared.copy(), max_new=5)
+    pa.paged_attention_cuda.launches = 0
+    steps0 = eng.decode_steps + eng.warm_steps
+    serve(eng, [dup])  # a whole cached prompt: copy-on-write
+    launches = pa.paged_attention_cuda.launches
+    return eng, copies, launches, eng.decode_steps + eng.warm_steps - steps0
+
+
+def test_warm_prefill_and_cow_on_card_match_the_plain_path(dev):
+    """Warm admissions on the card (one active row of decode steps through
+    the paged-attention kernel, a copy-on-write block) give the CPU's
+    tokens (the plain paged attention) and scoreboard; every warm and
+    decode step launches the kernel once per layer; the private copy equals
+    its shared source but for the re-fed last position."""
+    eng, copies, launches, steps = _warm_run(dev)
+    cpu, cpu_copies, _, _ = _warm_run(torch.device("cpu"))
+    assert {r.rid: r.out for r in eng.finished} == {
+        r.rid: r.out for r in cpu.finished}
+    assert eng.prefix_stats() == cpu.prefix_stats()
+    assert eng.cow_copies == 1 and eng.prefix_hits == 3
+    assert copies == cpu_copies and len(copies) == 1
+    assert launches == eng.cfg.n_layers * steps > 0
+    (src, dst), = copies
+    for e in eng._paged_layers():
+        for key in ("pk", "pv"):
+            pool = e[key]
+            assert torch.equal(pool[:, dst, :-1], pool[:, src, :-1])
+            torch.testing.assert_close(pool[:, dst, -1], pool[:, src, -1],
+                                       rtol=1e-5, atol=1e-5)
+
+
+def test_refused_kernel_launch_escapes_the_engine(dev):
+    """A paged-attention launch the card refuses escapes ``decode_chunk`` at
+    once as ``KernelLaunchError``: not retried, no request retired, nothing
+    run on the CPU instead."""
+    from repro_torch.launch.serve import Request
+    from repro_torch.runtime import fault
+
+    eng = _smoke_engine(dev)
+    rnp = np.random.default_rng(4)
+    eng.admit_pending([Request(rid=i, max_new=4, prompt=rnp.integers(
+        0, eng.cfg.vocab_size, n)) for i, n in enumerate((5, 9))])
+    real = build.library("paged_attention")
+    calls = []
+
+    class Refusing:
+        def paged_attention_decode(self, *args):
+            calls.append(1)
+            return 1  # cudaErrorInvalidValue
+
+        def kernel_error_string(self, err):
+            return real.kernel_error_string(err)
+
+    build._loaded["paged_attention"] = Refusing()
+    try:
+        with pytest.raises(build.KernelLaunchError) as info:
+            eng.decode_chunk()
+    finally:
+        build._loaded["paged_attention"] = real
+    assert not fault.is_transient_device_error(info.value)
+    assert len(calls) == 1
+    assert eng.failed_requests == 0 and eng.decode_failures == 0
+    assert eng.active == 2

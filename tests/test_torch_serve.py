@@ -146,10 +146,26 @@ def test_cli_serves_on_cpu_and_refuses_unported_flags():
                         "frozen", "--device", "cpu"])
     assert len(rep["finished"]) == 3 and rep["tokens"] == 9
     assert rep["engine"].host_transfer_bytes > 0
-    for flag in ("--prefix-cache", "--mesh", "--recalibrate",
-                 "--inject-drift", "--shared-prefix-len"):
-        with pytest.raises(SystemExit):
-            t_serve.main(["--arch", ARCH, "--smoke", "--device", "cpu", flag])
+    # tensor-parallel meshes are the one reference flag still refused
+    with pytest.raises(SystemExit):
+        t_serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                      "--mesh", "1x2"])
+    # the prefix and drift flags are ported and run
+    rep = t_serve.main(["--arch", ARCH, "--smoke", "--batch", "2",
+                        "--requests", "4", "--prompt-lens", "3,9", "--gen",
+                        "3", "--imc-mode", "imc_bitserial", "--imc-policy",
+                        "frozen", "--prefix-cache", "--shared-prefix-len",
+                        "16", "--prefix-dup", "2", "--recalibrate",
+                        "--drift-sample-every", "1", "--drift-check-every",
+                        "2", "--drift-pause-depth", "8", "--inject-drift",
+                        "1.5@2", "--device", "cpu"])
+    # the first two share one cold group; both later admissions are hits
+    assert rep["tokens"] == 12 and rep["engine"].prefix_hits == 2
+    assert rep["monitor"].counters()["shadow_samples"] >= 2
+    # --recalibrate needs a frozen substrate, as in the reference
+    with pytest.raises(SystemExit):
+        t_serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                      "--recalibrate", "--imc-mode", "imc_analytic"])
     # --degrade needs the frozen analytic substrate, as in the reference
     with pytest.raises(SystemExit):
         t_serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
