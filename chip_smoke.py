@@ -39,6 +39,16 @@ Phases, each reported on its own line:
              counters and drifted sites.  On the analytic substrate tokens
              may differ only at exact ties of the LM head's ADC-quantized
              logits.
+  7 bench    the port's benchmark suite on the card
+             (``repro_torch.benchmarks.run``: the paper figures with their
+             Monte Carlo overlays, the pareto table, the per-site SNR map and
+             the kernel bench, which runs the frozen seed bit-serial kernel
+             beside the port's; phase 3 holds each kernel it times against
+             its plain version on the same inputs), counting the seed
+             wrapper's calls (graph-captured calls once each); then the
+             MC convergence sweep (S_A - E_A and S_T - S_A at the reference's
+             512-row QS, QR and CM points and its 128-row QR and 64-row CM
+             points, ensembles of 600 to 10^6 under 8 generator seeds).
 Optional: ``--phases ...,profile``, a torch.profiler trace of one decode
 chunk of each full-width substrate (the analytic one also shadow-sampled)
 and of one warm prefix admission - device kernel time by name against the
@@ -48,7 +58,8 @@ wall time (summary printed, tables under build/chip_smoke/);
 ``--phases device,host``, the paged-attention wrapper's host cost per call
 (``--src DIR`` runs any phase on another checkout's package and kernels,
 e.g. ``git archive`` of the parent commit: processes alternating between
-the two checkouts time them against each other).
+the two checkouts time them against each other; the timers are that
+package's ``benchmarks.kernel_bench.device_ms`` and ``device_eager_ms``).
 The line before the last is a JSON object with every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a CUDA device, or outside a checkout of the repository,
@@ -66,7 +77,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "chip_smoke"  # logs and profiler tables (git-ignored)
-PHASES = ("device", "build", "kernels", "design", "serve", "parity")
+PHASES = ("device", "build", "kernels", "design", "serve", "parity",
+          "bench")
 # not run by default: a profiler trace of one decode chunk per substrate
 EXTRA_PHASES = ("profile", "tiles", "host")
 
@@ -100,75 +112,19 @@ def say(phase: str, msg: str):
 def wall_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean milliseconds per eager call (CUDA events around a run of calls):
     the device time, or the host's time to issue the call where that is
-    longer."""
-    import torch
+    longer (``kernel_bench.device_eager_ms``)."""
+    from repro_torch.benchmarks import kernel_bench
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def graph_kernel_nodes(graph) -> int:
-    """Kernel nodes of a captured CUDA graph (through the driver API)."""
-    import ctypes
-
-    cuda = ctypes.CDLL("libcuda.so.1")
-    handle = ctypes.c_void_p(graph.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    if cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
-        raise RuntimeError("cuGraphGetNodes failed")
-    nodes = (ctypes.c_void_p * n.value)()
-    if cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
-        raise RuntimeError("cuGraphGetNodes failed")
-    kinds = ctypes.c_int(0)
-    kernels = 0
-    for node in nodes:
-        if cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
-                                   ctypes.byref(kinds)) != 0:
-            raise RuntimeError("cuGraphNodeGetType failed")
-        kernels += kinds.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
-    return kernels
+    return kernel_bench.device_eager_ms(fn, iters, warmup)
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device milliseconds per call: ``iters`` calls captured in one
-    CUDA graph, replayed between CUDA events, so the host's time to issue a
-    call (tens of microseconds for a Python wrapper) is not counted.  Raises
-    unless the graph holds at least one kernel per call: a launch that the
-    capture missed would time as nothing."""
-    import torch
+    CUDA graph, replayed between CUDA events; raises unless the graph holds
+    a kernel per call (``kernel_bench.device_ms``)."""
+    from repro_torch.benchmarks import kernel_bench
 
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(warmup):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    nodes = graph_kernel_nodes(graph)
-    if nodes < iters:
-        raise AssertionError(f"the CUDA graph of {iters} calls holds "
-                             f"{nodes} kernels: the capture missed launches")
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return kernel_bench.device_ms(fn, iters, warmup)
 
 
 # ---------------------------------------------------------------------------
@@ -230,6 +186,26 @@ def check_paged_attention(dev):
             torch.equal(a2k[1:], a2p[1:]) and torch.equal(b2k[1:], b2p[1:])):
         raise AssertionError("paged attention (GQA, softcap) differs: max "
                              f"abs {float((c2k - c2p).abs().max())}")
+
+    # the kernel bench's paged shapes, on the very inputs it times
+    # (``kernel_bench.paged_operands``: float32 pools, every slot active)
+    from repro_torch.benchmarks import kernel_bench as kb
+
+    for shape in kb.PAGED_SHAPES:
+        q3, kn3, vn3, pk3, pv3, bt3, pos3, sc3 = kb.paged_operands(shape, dev)
+        c3k, a3k, b3k = pa.paged_attention_decode(
+            q3, kn3, vn3, pk3.clone(), pv3.clone(), bt3, pos3, scale=sc3)
+        c3p, a3p, b3p = pa.decode_plain(q3, kn3, vn3, pk3.clone(),
+                                        pv3.clone(), bt3, pos3, scale=sc3)
+        if not torch.allclose(c3k, c3p, rtol=1e-5, atol=1e-5) or not (
+                torch.equal(a3k[1:], a3p[1:])
+                and torch.equal(b3k[1:], b3p[1:])):
+            raise AssertionError(f"paged attention at the bench's {shape} "
+                                 "differs: max abs "
+                                 f"{float((c3k - c3p).abs().max())}")
+        say("kernels", f"paged_attention at the bench's (slots, blocks, "
+            f"block, kv heads, groups, head dim) {shape}: max abs "
+            f"{float((c3k - c3p).abs().max()):.3e}, pools equal")
 
     for _ in range(2):  # the splits' merge order is fixed: the same bits
         again, _, _ = pa.paged_attention_decode(q, kn, vn, pk.clone(),
@@ -685,6 +661,150 @@ def check_analytic_int8(dev):
                        "shape": f"{b}x{k}x{m}, noise and ADC"}
     row["max_abs_err"] = worst
     return row
+
+
+def seed_bound(b, k, m, bits, n_banks, noisy):
+    """(bound_ms, bound_by) of one seed bit-serial call: int8 codes read
+    once, the float32 noise operand (n_banks, bits, B, M) read once, the
+    float32 output written once; the plane products as one multiply-add (2
+    operations) per (b, k, m) and plane pair at the int8 rate, as
+    ``bitserial_bound`` counts the same plane products without gain."""
+    nbytes = (k * m + b * k + 4 * b * m
+              + (4 * n_banks * bits * b * m if noisy else 0))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * bits * b * k * m / INT8_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_seed_bitserial(dev):
+    """The frozen seed bit-serial kernel (the kernel bench's baseline)
+    against its plain version at the bench's three ``SHAPES``, on the very
+    inputs the bench times (``kernel_bench.bitserial_operands``: 8-bit ADC,
+    banks of min(512, K) rows, k_h 60, v_c 55, noise std 0.3), and at the
+    main path's bit-serial shape, (4, 1536) @ (1536, 6144) at 7x7 bits,
+    256-row banks, 10-bit ADC and the thermal noise in counts of
+    musicgen-medium's bit-serial substrate, the noise operand drawn from a
+    CUDA generator.  Bit-exact with and without noise (the same operand, exact
+    plane counts, the plain version's rounding and order).  Its noiseless
+    output is ``bitserial.cu``'s noiseless, gain-free output (the same
+    function, its float32 terms summed in another order): allclose(rtol 0,
+    atol ``kernel_bench.order_atol``, 8 float32 ulps of the largest partial
+    sum in the seed's order).  At the bench's shapes ``bitserial.cu`` is
+    also held, with noise and without gain at the bench's counter-hash seed
+    (its ``kernel_noise`` config), against ``ref.imc_bitserial_ref`` under
+    phase 3's rule: at most 0.1% of outputs differ, none by more than one
+    step of the heaviest plane pair.  Times at the main shape: ``ms`` the
+    whole wrapper call with noise (casts, layout, the two pack passes and
+    the main kernel), ``kernel_ms`` the entry point alone on operands in its
+    layout, and ``ms_nonoise`` the wrapper without noise."""
+    import torch
+
+    from repro_torch.benchmarks import kernel_bench as kb
+    from repro_torch.core.imc_linear import IMCConfig
+    from repro_torch.kernels import build, imc_mvm, ops, ref
+
+    cases = [(shape, kb.bitserial_operands(shape, dev))
+             for shape in kb.SHAPES]
+    mc = ops.matmul_config_from_imc(
+        IMCConfig(mode="imc_bitserial", bx=7, bw=7, v_wl=0.7), 1536)
+    spec = ref.BitSerialSpec(bx=7, bw=7, b_adc=mc.b_adc, rows=mc.rows,
+                             k_h=mc.k_h_counts, v_c=mc.v_c_counts,
+                             x_signed=True)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((BITSERIAL_SLOTS, 1536), generator=gen, device=dev)
+    w = torch.randn((1536, 6144), generator=gen, device=dev)
+    xc, _ = ref.quantize_codes(x, spec.bx, True, x.abs().max())
+    wc, _ = ref.quantize_codes(w, spec.bw, True, w.abs().max())
+    noise = mc.sigma_thermal_counts * torch.randn(
+        (-(-1536 // spec.rows), spec.bw * spec.bx, BITSERIAL_SLOTS, 6144),
+        generator=gen, device=dev)
+    cases.append(((BITSERIAL_SLOTS, 1536, 6144, 7, 7),
+                  (xc, wc, noise, spec, spec)))
+    worst = 0.0  # against the plain version, with and without noise
+    for (b, k, m, bx, bw), (xc, wc, noise, spec, spec_noisy) in cases:
+        for nz in (None, noise):
+            y_k = kb.seed_bitserial_matmul(xc, wc, nz, spec)
+            y_p = kb.seed_bitserial_plain(xc, wc, nz, spec)
+            torch.cuda.synchronize()
+            worst = max(worst, float((y_k - y_p).abs().max()))
+            if not torch.equal(y_k, y_p):
+                raise AssertionError(
+                    f"seed_bitserial {b}x{k}x{m} (noise {nz is not None}) "
+                    f"differs from its plain version: "
+                    f"{float((y_k != y_p).float().mean()):.2e} of outputs, "
+                    f"max abs {float((y_k - y_p).abs().max())}")
+        y_new = imc_mvm.imc_bitserial_matmul(xc, wc, None, spec)
+        y_seed = kb.seed_bitserial_matmul(xc, wc, None, spec)
+        err = float((y_seed - y_new).abs().max())
+        atol = kb.order_atol(xc, wc, spec)
+        if not torch.allclose(y_seed, y_new, rtol=0, atol=atol):
+            raise AssertionError(
+                f"seed_bitserial {b}x{k}x{m}: the noiseless output is not "
+                f"bitserial.cu's (max abs {err} against {atol}, 8 ulps of "
+                f"the largest partial sum)")
+        noisy = ""
+        if spec_noisy is not spec:  # the bench's kernel_noise config
+            y_k = imc_mvm.imc_bitserial_matmul(xc, wc, None, spec_noisy,
+                                               seed=kb.NOISE_SEED)
+            y_p = ref.imc_bitserial_ref(xc, wc, None, spec_noisy,
+                                        seed=kb.NOISE_SEED)
+            diff = (y_k - y_p).abs()
+            frac = float((diff > 0).float().mean())
+            step = spec.v_c / 2**spec.b_adc * 2 ** (spec.bw + spec.bx)
+            if frac > 1e-3 or float(diff.max()) > step:
+                raise AssertionError(
+                    f"bitserial {b}x{k}x{m} with noise, no gain: {frac:.2e} "
+                    f"of outputs differ (limit 1e-3), max "
+                    f"{float(diff.max())} (step {step})")
+            noisy = (f"; bitserial.cu with noise (seed {kb.NOISE_SEED}) "
+                     f"against its plain version: {frac:.2e} of outputs "
+                     f"differ, max {float(diff.max()):.3e}")
+        say("kernels", f"seed_bitserial {b}x{k}x{m} {spec.bx}x{spec.bw} "
+            f"rows={spec.rows} b_adc={spec.b_adc}: bit-exact with and "
+            f"without noise; noiseless against bitserial.cu's: max abs "
+            f"{err:.3e} (atol {atol:.3e}){noisy}")
+
+    # the main shape: the last case's operands
+    ms = time_ms(lambda: kb.seed_bitserial_matmul(xc, wc, noise, spec))
+    ms_nonoise = time_ms(lambda: kb.seed_bitserial_matmul(xc, wc, None, spec))
+    x8, w8, rows_p = kb.seed_layout(xc, wc, spec.rows)
+    xp, wp = kb.seed_scratch(x8, w8, spec)
+    out = torch.empty((BITSERIAL_SLOTS, 6144), dtype=torch.float32,
+                      device=dev)
+
+    def kernel_call():
+        err = build.library("seed_bitserial").seed_bitserial_matmul(
+            *kb.seed_c_args(x8, w8, noise, xp, wp, out, spec, rows_p))
+        if err != 0:
+            raise RuntimeError(f"seed_bitserial launch failed: {err}")
+
+    kernel_ms = time_ms(kernel_call)
+    torch.cuda.synchronize()
+    if not torch.equal(out, kb.seed_bitserial_matmul(xc, wc, noise, spec)):
+        raise AssertionError("seed_bitserial: the kernel alone and the "
+                             "wrapper differ")
+    plain_ms = wall_ms(lambda: kb.seed_bitserial_plain(xc, wc, noise, spec),
+                       iters=3, warmup=1)
+    bits = spec.bw * spec.bx
+    n_banks = -(-1536 // spec.rows)
+    bound, by = seed_bound(BITSERIAL_SLOTS, 1536, 6144, bits, n_banks, True)
+    bound_clean, by_clean = seed_bound(BITSERIAL_SLOTS, 1536, 6144, bits,
+                                       n_banks, False)
+    say("kernels", f"seed_bitserial at {BITSERIAL_SLOTS}x1536x6144 with "
+        f"noise: ms={ms:.4f} (kernel alone {kernel_ms:.4f}) "
+        f"plain_ms={plain_ms:.4f} bound_ms={bound:.5f} ({by}, "
+        f"{bound / kernel_ms:.1%} of it for the kernel alone); without "
+        f"noise ms={ms_nonoise:.4f} bound_ms={bound_clean:.5f} ({by_clean})")
+    return {"name": "seed_bitserial", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/seed_bitserial.cu",
+            "replaces": "benchmarks/kernel_bench.py:66",
+            "launches_are": "wrapper calls in the bench phase, warm-up and "
+                            "graph-captured (graph replays uncounted); each "
+                            "call is 3 kernels",
+            "max_abs_err": worst, "ms": ms, "kernel_ms": kernel_ms,
+            "ms_nonoise": ms_nonoise, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "shape": f"{BITSERIAL_SLOTS}x1536x6144, noise operand"}
 
 
 # ---------------------------------------------------------------------------
@@ -1559,6 +1679,117 @@ def cli_parity(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the port's benchmark suite and the MC convergence sweep
+# ---------------------------------------------------------------------------
+
+BENCH_SUITES = ["fig4", "fig9", "fig10", "fig11", "fig12", "fig13", "pareto",
+                "site_snr", "kernel"]
+
+
+def phase_bench(dev):
+    """``repro_torch.benchmarks.run``'s suites on the card, in-process
+    (report under build/chip_smoke/bench.json), counting the seed kernel's
+    launches; then the MC convergence sweep (``paper_figures.mc_convergence``:
+    the reference's 512-row QS, QR and CM points and its 128-row QR and
+    64-row CM points; ensembles of 600 to 10^6 under 8 generator seeds).  Checks: every number finite; each MC
+    overlay within 3.5 dB of its closed form (the widest band of the
+    reference's MC tests); the kernel summaries' noise and gathered-KV
+    reductions above 1; per point, the spread over seeds smaller at 10^6
+    than at 600."""
+    import math
+
+    import torch
+
+    from repro_torch.benchmarks import kernel_bench as kb
+    from repro_torch.benchmarks import paper_figures
+    from repro_torch.benchmarks import run as bench_run
+
+    reset_counts()
+    kb.seed_bitserial_cuda.launches = 0
+    t0 = time.perf_counter()
+    lines = []
+    payload = bench_run.run_suites(BENCH_SUITES, dev, out=lines.append)
+    launches = {"seed_bitserial": kb.seed_bitserial_cuda.launches,
+                **read_counts()}
+    (OUT / "bench.json").write_text(json.dumps(payload, indent=1,
+                                               sort_keys=True) + "\n")
+    (OUT / "bench.csv").write_text("\n".join(lines) + "\n")
+
+    def numbers(rec):
+        return [v for v in rec.values()
+                if isinstance(v, (int, float)) and not isinstance(v, bool)]
+
+    for name, suite in payload["suites"].items():
+        bad = [r for r in suite["records"]
+               if not all(math.isfinite(v) for v in numbers(r))]
+        if bad or not suite["records"]:
+            raise AssertionError(f"bench suite {name}: no records or a "
+                                 f"number that is not finite: {bad[:2]}")
+    for fig in paper_figures.MC_FIGS:
+        for r in payload["suites"][fig]["records"]:
+            if "/S_snrA_" in r["name"]:  # derived: "E=<closed form> ..."
+                e_a = float(r["derived"].split("E=")[1].split()[0])
+                if abs(r["value"] - e_a) > 3.5:
+                    raise AssertionError(f"bench MC overlay {r['name']}: S "
+                                         f"{r['value']} vs E {e_a}")
+                say("bench", f"{r['name']}: S_A {r['value']} dB, E_A {e_a} "
+                    "dB")
+    kernel = payload["suites"]["kernel"]["records"]
+    for r in kernel:
+        if r["bench"] == "bitserial_summary":
+            if not r["noise_bytes_reduction"] > 1:
+                raise AssertionError(f"bench kernel summary: {r}")
+            say("bench", f"bitserial B{r['B']} K{r['K']} M{r['M']} "
+                f"{r['bx']}x{r['bw']}: speedup over the seed "
+                f"{r['speedup_vs_seed']:.2f} (noise "
+                f"{r['speedup_vs_seed_noise']:.2f}), noise bytes "
+                f"{r['noise_bytes_before']} -> {r['noise_bytes_after']}")
+        elif r["bench"] == "paged_attention_summary":
+            if not r["gathered_kv_reduction"] > 1:
+                raise AssertionError(f"bench kernel summary: {r}")
+            say("bench", f"paged S{r['slots']} N{r['blocks']}: speedup over "
+                f"the gather path {r['speedup_vs_gather']:.2f}, gathered KV "
+                f"{r['gathered_kv_bytes_before']} -> "
+                f"{r['gathered_kv_bytes_after']} bytes")
+        elif r["bench"] == "bitserial":
+            say("bench", f"bitserial {r['config']} B{r['B']} K{r['K']} "
+                f"M{r['M']}: {kb.ms_of(r):.4f} ms ({kb.time_key(r)})")
+    if launches["seed_bitserial"] <= 0:
+        raise AssertionError(f"bench: the seed kernel never launched: "
+                             f"{launches}")
+    t_suites = time.perf_counter() - t0
+    say("bench", f"suites {','.join(BENCH_SUITES)} in {t_suites:.1f} s "
+        f"(report build/chip_smoke/bench.json); wrapper calls counted "
+        f"{launches} (3 warm-up and 20 graph-captured calls per timed "
+        f"config; the graphs' replays run 40 more uncounted; a seed call is "
+        f"3 kernels: pack_x, pack_w, main)")
+
+    t1 = time.perf_counter()
+    sweep = paper_figures.mc_convergence(dev)
+    (OUT / "mc_convergence.json").write_text(json.dumps(sweep, indent=1)
+                                             + "\n")
+    for r in sweep:
+        vals = [r[k] for k in ("gap_mean_db", "gap_std_db", "adc_mean_db",
+                               "adc_std_db", "ms_per_ensemble")]
+        if not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"MC convergence: not finite: {r}")
+        say("bench", f"MC {r['point']} ens={r['ens']} ({r['seeds']} "
+            f"seeds): S_A-E_A {r['gap_mean_db']:+.3f} +- "
+            f"{r['gap_std_db']:.3f} dB (E_A {r['e_a_db']:.2f}), S_T-S_A "
+            f"{r['adc_mean_db']:+.3f} +- {r['adc_std_db']:.3f} dB, "
+            f"{r['ms_per_ensemble']:.1f} ms per ensemble")
+    for point in paper_figures.MC_POINTS:
+        rs = [r for r in sweep if r["point"] == point]
+        if not rs[-1]["gap_std_db"] < rs[0]["gap_std_db"]:
+            raise AssertionError(f"MC convergence {point}: the spread over "
+                                 f"seeds did not shrink: {rs}")
+    say("bench", f"MC convergence sweep in {time.perf_counter() - t1:.1f} s "
+        f"(build/chip_smoke/mc_convergence.json); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return {"seed_bitserial": launches["seed_bitserial"]}
+
+
+# ---------------------------------------------------------------------------
 # optional: where a decode step's time goes
 # ---------------------------------------------------------------------------
 
@@ -1870,17 +2101,20 @@ def main() -> int:
     kernels = []
     if "kernels" in phases:
         kernels = [check_paged_attention(dev), *check_bitserial(dev),
-                   check_analytic(dev), check_analytic_int8(dev)]
+                   check_analytic(dev), check_analytic_int8(dev),
+                   check_seed_bitserial(dev)]
     counts = {}
     if "design" in phases:
         reset_counts()
         counts.update(phase_design(dev))
     if "serve" in phases:
         counts.update(phase_serve())
-    for k in kernels:  # None where the phase that counts it did not run
-        k["launches"] = counts.get(k["name"])
     if "parity" in phases:
         phase_parity(dev)
+    if "bench" in phases:
+        counts.update(phase_bench(dev))
+    for k in kernels:  # None where the phase that counts it did not run
+        k["launches"] = counts.get(k["name"])
     if "profile" in phases:
         phase_profile()
     if "tiles" in phases:

@@ -7,13 +7,14 @@
   archs           QS-Arch / QR-Arch / CM architecture analytics (Table III)
   adc             column-ADC energy model (eq. 26)
   scaling         technology-node parameter tables (SSV-D)
+  mc              sample-accurate Monte Carlo validators (SSV-A, Fig. 8): a
+                  draw step per simulator on an explicit torch.Generator, a
+                  deterministic chain, and chunked ensemble runs
   design          min-energy design-point solver (SSVI guidelines as a solver)
   mapping         matmul -> bank tiling + whole-model energy rollups
   imc_linear      the executable IMC linear layer (digital/fakequant/analytic/bitserial)
   substrate       execution substrates: per-site design points,
                   frozen-vs-dynamic calibration, batch-invariant IMC serving
-
-The Monte Carlo validators (``mc``) are not ported yet.
 """
 from repro_torch.core.adc import adc_energy  # noqa: F401
 from repro_torch.core.archs import CMArch, IMCArch, QRArch, QSArch  # noqa: F401

@@ -131,8 +131,12 @@ def bit_planes(codes, bits: int, signed: bool):
               plane.
       weights: float array (bits,) such that ``codes == sum_j weights[j]*planes[j]``.
                Unsigned: ``weights[j] = 2^j``. Signed: MSB weight ``-2^(bits-1)``.
+    Torch codes give torch planes (same dtype and device); the weights are
+    numpy either way.
     """
-    codes = np.asarray(codes)
+    xp = torch if isinstance(codes, torch.Tensor) else np
+    if xp is np:
+        codes = np.asarray(codes)
     if signed:
         # offset-binary representative: u = k + 2^(B-1) in [0, 2^B - 1]
         u = codes + 2.0 ** (bits - 1)
@@ -140,13 +144,14 @@ def bit_planes(codes, bits: int, signed: bool):
         u = codes
     planes = []
     for j in range(bits):
-        b = np.mod(np.floor(u / (2.0**j)), 2.0)
+        # a division by a power of two is exact, so the multiply is too
+        b = xp.remainder(xp.floor(u * 2.0**-j), 2.0)
         planes.append(b)
     if signed:
         # two's complement sign bit a_{B-1} = 1 - (offset-binary MSB), so that
         # k = -2^(B-1) a_{B-1} + sum_{j<B-1} 2^j a_j  holds exactly.
         planes[bits - 1] = 1.0 - planes[bits - 1]
-    planes = np.stack(planes, axis=0)
+    planes = xp.stack(planes)
     weights = np.array([2.0**j for j in range(bits)])
     if signed:
         weights = weights.copy()

@@ -22,7 +22,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("paged_attention", "bitserial", "analytic", "analytic_int8")
+SOURCES = ("paged_attention", "bitserial", "analytic", "analytic_int8",
+           "seed_bitserial")
 # streaming multiprocessors of the H100 the kernels' launch plans fill
 SMS = 132
 
@@ -36,6 +37,8 @@ _SIGNATURES = {
                  [_P] * 3 + [_I] * 4 + [_U, _F, _I, _F, _F, _F, _P]),
     "analytic_int8": ("imc_analytic_int8_matmul",
                       [_P] * 4 + [_I] * 6 + [_U, _F, _I, _F, _F, _F, _P]),
+    "seed_bitserial": ("seed_bitserial_matmul",
+                       [_P] * 6 + [_I] * 7 + [_F, _I, _F, _F, _P]),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -63,16 +63,17 @@ def _code_bytes(codes):
 BITSERIAL_K_STEP, BITSERIAL_N_TILE = 16, 8
 
 
-def kernel_layout(x, w, w_gain, rows: int):
-    """``(x, w, w_gain, rows)`` padded to the bit-serial kernel's layout:
-    each bank's rows to a multiple of 16 when ``rows`` is not one (else only
+def kernel_layout(x, w, w_gain, rows: int, step: int = BITSERIAL_K_STEP,
+                  tile: int = BITSERIAL_N_TILE):
+    """``(x, w, w_gain, rows)`` padded to a bit-serial kernel's layout (by
+    default the bit-serial kernel's, ``step`` 16 and ``tile`` 8): each
+    bank's rows to a multiple of ``step`` when ``rows`` is not one (else only
     K, at the end), with zero codes (gain 1), and the columns to a multiple
-    of 8 with zero codes.  Banks keep their index and the live (b, m) their
-    place, so the result's first M columns, and its noise sites, are those
-    of the unpadded call.  Operands already in the layout come back as
+    of ``tile`` with zero codes.  Banks keep their index and the live (b, m)
+    their place, so the result's first M columns, and its noise sites, are
+    those of the unpadded call.  Operands already in the layout come back as
     they are."""
     k, m = w.shape
-    step, tile = BITSERIAL_K_STEP, BITSERIAL_N_TILE
     pad = torch.nn.functional.pad
     if rows % step:
         n_banks = -(-k // rows)

@@ -514,3 +514,99 @@ def test_refused_kernel_launch_escapes_the_engine(dev):
     assert len(calls) == 1
     assert eng.failed_requests == 0 and eng.decode_failures == 0
     assert eng.active == 2
+
+
+# ---------------------------------------------------------------------------
+# the frozen seed bit-serial kernel (the kernel bench's baseline)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [
+    (3, 100, 10, 40, 4, 4, True),      # ragged banks of 40 rows
+    (2, 70, 5, 70, 8, 8, False),       # 8-bit unsigned inputs, one bank
+    (64, 512, 128, 512, 6, 6, True),   # the bench's SHAPES[0]
+    (4, 1536, 6144, 256, 7, 7, True),  # the bit-serial serve's MLP shape
+])
+def test_seed_bitserial_kernel_matches_plain(dev, shape):
+    """Bit-exact with and without the noise operand: the same operand, exact
+    plane counts, the plain version's rounding and summation order."""
+    from repro_torch.benchmarks import kernel_bench as kb
+
+    b, k, m, rows, bx, bw, xs = shape
+    xc, wc = _codes(dev, b, k, m, bx, bw, xs)
+    spec = ref.BitSerialSpec(bx=bx, bw=bw, b_adc=8, rows=rows, k_h=60.0,
+                             v_c=55.0, x_signed=xs)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    noise = 0.3 * torch.randn((-(-k // rows), bw * bx, b, m), generator=gen,
+                              device=dev)
+    before = kb.seed_bitserial_cuda.launches
+    for nz in (None, noise):
+        y_k = kb.seed_bitserial_matmul(xc, wc, nz, spec)
+        y_p = kb.seed_bitserial_plain(xc, wc, nz, spec)
+        torch.cuda.synchronize()
+        assert torch.equal(y_k, y_p), float((y_k - y_p).abs().max())
+    assert kb.seed_bitserial_cuda.launches == before + 2
+
+
+@pytest.mark.parametrize("rows,bx,bw", [(256, 7, 7), (512, 6, 6), (64, 4, 5)])
+def test_seed_bitserial_kernel_without_noise_is_bitserial(dev, rows, bx, bw):
+    """Without noise the seed computes bitserial.cu's function without gain;
+    the two sum the same float32 terms in other orders: allclose(rtol 0,
+    atol ``order_atol``, 8 float32 ulps of the largest partial sum)."""
+    from repro_torch.benchmarks import kernel_bench as kb
+
+    xc, wc = _codes(dev, 4, 1536, 2048, bx, bw, True, seed=8)
+    spec = ref.BitSerialSpec(bx=bx, bw=bw, b_adc=10, rows=rows, k_h=120.0,
+                             v_c=100.0, x_signed=True)
+    y_seed = kb.seed_bitserial_matmul(xc, wc, None, spec)
+    y_new = imc_mvm.imc_bitserial_matmul(xc, wc, None, spec)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y_seed, y_new, rtol=0,
+                               atol=kb.order_atol(xc, wc, spec))
+
+
+# ---------------------------------------------------------------------------
+# the Monte Carlo chains on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind", ["qs", "qr", "cm"])
+def test_mc_chain_on_card_matches_cpu(dev, kind):
+    """The same operands and draws through each chain on the card and on
+    the CPU: y_pre allclose(rtol 1e-5, atol 1e-5 * max|y|) (reductions in
+    other orders), the SNRs within 0.02 dB (ADC knife edges may flip)."""
+    from repro_torch.core import mc
+    from repro_torch.core.archs import CMArch, QRArch, QSArch
+
+    arch, draw, chain = {
+        "qs": (QSArch(n=512, bx=6, bw=6, v_wl=0.6), mc.draw_qs, mc.qs_chain),
+        "qr": (QRArch(n=512, bx=6, bw=7, c_o=3e-15), mc.draw_qr,
+               mc.qr_chain),
+        "cm": (CMArch(n=512, bx=6, bw=6, v_wl=0.8), mc.draw_cm, mc.cm_chain),
+    }[kind]
+    gen = mc.generator(2, "cpu")
+    x, w = mc.sample_operands(gen, 4000, 512, arch.stats)
+    draws = draw(gen, 4000, 512, arch)
+    y_cpu = chain(x, w, arch, draws)
+    y_card = chain(x.to(dev), w.to(dev), arch,
+                   type(draws)(*(t.to(dev) for t in draws)))
+    torch.testing.assert_close(y_card[1].cpu(), y_cpu[1], rtol=1e-5,
+                               atol=1e-5 * float(y_cpu[1].abs().max()))
+    s_cpu = mc.snrs_from_sums(mc.snr_sums(*y_cpu), 4000)
+    s_card = mc.snrs_from_sums(mc.snr_sums(*y_card), 4000)
+    for name in ("snr_T_db", "snr_A_db"):
+        assert abs(s_card[name] - s_cpu[name]) < 0.02, (s_card, s_cpu)
+
+
+def test_mc_chunked_ensemble_on_card(dev, monkeypatch):
+    """empirical_snrs on a CUDA generator across several chunks: the same
+    result twice, within the reference test's band at 512 rows."""
+    from repro_torch.core import mc
+    from repro_torch.core.archs import QSArch
+
+    arch = QSArch(n=512, bx=6, bw=6, v_wl=0.6)
+    monkeypatch.setattr(mc, "CHUNK", 2048)
+    runs = [mc.empirical_snrs(mc.generator(3, dev), arch, mc.mc_qs_arch,
+                              ens=5000) for _ in range(2)]
+    assert runs[0] == runs[1]
+    assert abs(runs[0]["snr_A_db"] - arch.snr_A_db()) < 1.0, runs[0]
