@@ -16,7 +16,7 @@ Phases, each reported on its own line:
              matmul shape of musicgen-medium at 512 rows through
              ``ops.imc_matmul(mode="imc_analytic")`` at each billed QR and CM
              design point (the int8 kernel), delivered SNR_T against the
-             design's prediction, and one 10-bit call (the float32 kernel);
+             design's prediction, and one 10-bit call (the float kernel);
   5 serve    full-width musicgen-medium (48 layers, d_model 1536, bf16,
              seeded random weights) served by the engine on the digital
              substrate (metered, with the energy table), the bit-serial IMC
@@ -55,6 +55,8 @@ and of one warm prefix admission - device kernel time by name against the
 wall time (summary printed, tables under build/chip_smoke/);
 ``--phases ...,tiles``, the analytic kernel's tile instantiations
 (``TILE_CONFIGS``) timed against each other at every site shape;
+``--phases device,kprofile``, torch.profiler's kernel rows of one call of
+the seed bit-serial wrapper and of the float analytic wrapper;
 ``--phases device,host``, the paged-attention wrapper's host cost per call
 (``--src DIR`` runs any phase on another checkout's package and kernels,
 e.g. ``git archive`` of the parent commit: processes alternating between
@@ -80,11 +82,12 @@ OUT = ROOT / "build" / "chip_smoke"  # logs and profiler tables (git-ignored)
 PHASES = ("device", "build", "kernels", "design", "serve", "parity",
           "bench")
 # not run by default: a profiler trace of one decode chunk per substrate
-EXTRA_PHASES = ("profile", "tiles", "host")
+EXTRA_PHASES = ("profile", "tiles", "host", "kprofile")
 
 # NVIDIA H100 SXM published peaks (data sheet, dense), used for the bounds
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+TF32_FLOPS_PER_S = 494.7e12
 F32_FLOPS_PER_S = 67e12
 F64_TC_FLOPS_PER_S = 67e12  # FP64 on the tensor cores
 
@@ -100,9 +103,11 @@ PREFIX_SLOTS, PREFIX_REQUESTS, PREFIX_SHARED = 8, 16, 256
 PREFIX_KV_BLOCKS = 90
 # matmul shapes of musicgen-medium (K, M): attention, MLP in, MLP out, head
 SITE_SHAPES = ((1536, 1536), (1536, 6144), (6144, 1536), (1536, 2048))
-# (BM, BN, BK, TM, TN) instantiations of the analytic kernel's tile template
-# timed against each other by the optional tiles phase
-TILE_CONFIGS = ((64, 64, 16, 4, 4), (8, 64, 32, 1, 4))
+# (warpgroups, N, min blocks per SM) instantiations of the analytic kernel's
+# tile template, each warpgroup 64 rows x N columns, timed against each
+# other by the optional tiles phase: the three it ships (128 x 192, 64 x 96,
+# 64 x 64) and 128 x 96
+TILE_CONFIGS = ((2, 192, 1), (1, 96, 2), (1, 64, 2), (2, 96, 1))
 
 
 def say(phase: str, msg: str):
@@ -430,38 +435,54 @@ def check_bitserial(dev):
                  shape=f"{b}x1536x2048 (LM head), no noise or gain")]
 
 
-def analytic_bound(b, k, m):
+def analytic_bound(b, k, m, products):
     """(bound_ms, bound_by) of one analytic call: f32 x, w and out moved once
-    over the HBM rate, or the 2 B K M float32 operations of the product over
-    the card's float32 peak (the noise draws are not counted)."""
+    over the HBM rate, or the split-TF32 products (2 B K M operations each)
+    over the TF32 tensor-core peak: ``products`` is 3, or 2 where every
+    weight code is one TF32 limb (an integer of at most 11 bits: the kernel
+    skips x_hi w_lo).  The noise draws are not counted."""
     t_bytes = 4 * (b * k + k * m + b * m) / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * b * k * m / F32_FLOPS_PER_S * 1e3
+    t_ops = products * 2 * b * k * m / TF32_FLOPS_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def analytic_operands(gen, b, k, m, pt, dev):
-    """Seeded analytic-kernel operands at design point ``pt``: activation
-    codes over sigma_yo (of the first 8 rows' code product), weight codes."""
+def tf32_products(w):
+    """The split-TF32 products the analytic kernel runs on float32 ``w``: 3
+    if some value has a mantissa bit below TF32's (a nonzero lo limb), else
+    2."""
+    import torch
+
+    return 2 + int(bool(((w.view(torch.int32) & 0x1FFF) != 0).any()))
+
+
+def analytic_operands(gen, b, k, m, bx, bw, dev):
+    """Seeded analytic-kernel operands: unsigned ``bx``-bit activation codes
+    over sigma_yo (of the first 8 rows' code product), signed ``bw``-bit
+    weight codes."""
     import torch
 
     from repro_torch.kernels import ref
 
     x = torch.rand((b, k), generator=gen, device=dev)
     w = torch.rand((k, m), generator=gen, device=dev) * 2 - 1
-    xc, _ = ref.quantize_codes(x, pt.bx, False, x.abs().max())
-    wc, _ = ref.quantize_codes(w, pt.bw, True, w.abs().max())
+    xc, _ = ref.quantize_codes(x, bx, False, x.abs().max())
+    wc, _ = ref.quantize_codes(w, bw, True, w.abs().max())
     return ref.true_div(xc, (xc[:8] @ wc).std(unbiased=False) + 1e-9), wc
 
 
 def check_analytic(dev):
-    """The analytic kernel at every musicgen-medium site shape, at B = 8 and
-    B = 512, with the QR 26 dB design point's ADC (b_adc from the design,
-    sigma_out = 10^(-SNR_a/20), y_clip 4) and a seed.  With the ADC at most
-    0.1% of the outputs may differ from the plain version, each by at most
-    one ADC step plus 1e-6 (the K order of the sums differs); without it
-    allclose(rtol 1e-5, atol 1e-5 * max|y|), and at one shape the noise alone
-    (noisy - clean) equals sigma_out * z of the plain version within 3 ulp.
-    The plain version on the card is float32 (TF32 off)."""
+    """The float analytic kernel (split TF32) at every musicgen-medium site
+    shape, at B = 8 and B = 512, with the QR 26 dB design point's codes and
+    ADC (b_adc from the design, sigma_out = 10^(-SNR_a/20), y_clip 4) and a
+    seed, then with 16-bit weight codes (two TF32 limbs) at (1536, 6144).
+    With the ADC at most 0.1% of the outputs may differ from the plain
+    version, each by at most one ADC step plus 1e-6 (the K order of the sums
+    differs); without it allclose(rtol 1e-5, atol 1e-5 * max|y|), and at one
+    shape the noise alone (noisy - clean) equals sigma_out * z of the plain
+    version within 3 ulp.  The plain version on the card is float32 (TF32
+    off).  At B = 512 each noiseless product's largest error against a
+    float64 product is printed beside cuBLAS float32's (``torch.matmul``).
+    Timed against ``torch.matmul`` f32 (product only)."""
     import torch
 
     from repro_torch.core.design import optimize
@@ -479,54 +500,77 @@ def check_analytic(dev):
     step = 2 * spec.y_clip / 2**spec.b_adc
     seed = 1234
     gen = torch.Generator(device=dev).manual_seed(2)
+    cases = [(b, k, m, pt.bw) for b in (8, 512) for k, m in SITE_SHAPES]
+    cases += [(b, 1536, 6144, 16) for b in (8, 512)]
     worst, row = 0.0, None
-    for b in (8, 512):
-        for k, m in SITE_SHAPES:
-            xs, wc = analytic_operands(gen, b, k, m, pt, dev)
-            y_k = imc_mvm.imc_analytic_matmul(xs, wc, spec, seed=seed)
-            y_p = ref.imc_analytic_ref(xs, wc, spec, seed=seed)
-            r_k = imc_mvm.imc_analytic_matmul(xs, wc, raw, seed=seed)
-            r_p = ref.imc_analytic_ref(xs, wc, raw, seed=seed)
-            torch.cuda.synchronize()
-            diff = (y_k - y_p).abs()
-            frac = float((diff > 1e-6).float().mean())
-            if float(diff.max()) > step + 1e-6 or frac >= 1e-3:
-                raise AssertionError(
-                    f"analytic {b}x{k}x{m}: {frac:.2e} of outputs differ "
-                    f"(limit 1e-3), max {float(diff.max())} (limit {step})")
-            atol = 1e-5 * float(r_p.abs().max())
-            if not torch.allclose(r_k, r_p, rtol=1e-5, atol=atol):
-                raise AssertionError(
-                    f"analytic {b}x{k}x{m} without the ADC differs: max abs "
-                    f"{float((r_k - r_p).abs().max())}")
-            worst = max(worst, float(diff.max()))
-            if (b, k, m) == (8, 1536, 1536):
-                clean = imc_mvm.imc_analytic_matmul(xs, wc, raw)
-                z = spec.sigma_out * ref.analytic_output_noise(seed, b, m,
-                                                               device=dev)
-                eps = torch.finfo(torch.float32).eps
-                tol = 3 * eps * (z.abs() + r_k.abs())
-                if not bool(((r_k - clean - z).abs() <= tol).all()):
-                    raise AssertionError("analytic noise differs from "
-                                         "sigma_out * z by more than 3 ulp")
-            ms = time_ms(lambda: imc_mvm.imc_analytic_matmul(xs, wc, spec,
-                                                             seed=seed))
-            plain_ms = wall_ms(lambda: ref.imc_analytic_ref(xs, wc, spec,
-                                                            seed=seed))
-            lib_ms = time_ms(lambda: torch.matmul(xs, wc))
-            bound, by = analytic_bound(b, k, m)
-            say("kernels", f"analytic {b}x{k}x{m} b_adc={spec.b_adc}: "
-                f"{frac:.2e} of outputs differ, max_abs_err="
-                f"{float(diff.max()):.3e}; ms={ms:.4f} plain_ms={plain_ms:.4f}"
-                f" library_ms(torch.matmul, product only)={lib_ms:.4f} "
-                f"bound_ms={bound:.5f} ({by})")
-            if (b, k, m) == (512, 1536, 6144):
-                row = {"name": "analytic", "route": "cuda",
-                       "source": "src/repro_torch/kernels/csrc/analytic.cu",
-                       "replaces": "src/repro/kernels/imc_mvm.py:284",
-                       "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                       "bound_by": by, "library_ms": lib_ms,
-                       "shape": f"{b}x{k}x{m}, noise and ADC"}
+    for b, k, m, bw in cases:
+        xs, wc = analytic_operands(gen, b, k, m, pt.bx, bw, dev)
+        y_k = imc_mvm.imc_analytic_matmul(xs, wc, spec, seed=seed)
+        y_p = ref.imc_analytic_ref(xs, wc, spec, seed=seed)
+        r_k = imc_mvm.imc_analytic_matmul(xs, wc, raw, seed=seed)
+        r_p = ref.imc_analytic_ref(xs, wc, raw, seed=seed)
+        torch.cuda.synchronize()
+        diff = (y_k - y_p).abs()
+        frac = float((diff > 1e-6).float().mean())
+        label = f"analytic {b}x{k}x{m} bw={bw}"
+        if float(diff.max()) > step + 1e-6 or frac >= 1e-3:
+            raise AssertionError(
+                f"{label}: {frac:.2e} of outputs differ (limit 1e-3), max "
+                f"{float(diff.max())} (limit {step})")
+        atol = 1e-5 * float(r_p.abs().max())
+        if not torch.allclose(r_k, r_p, rtol=1e-5, atol=atol):
+            raise AssertionError(
+                f"{label} without the ADC differs: max abs "
+                f"{float((r_k - r_p).abs().max())}")
+        worst = max(worst, float(diff.max()))
+        if (b, k, m) == (8, 1536, 1536):
+            clean = imc_mvm.imc_analytic_matmul(xs, wc, raw)
+            z = spec.sigma_out * ref.analytic_output_noise(seed, b, m,
+                                                           device=dev)
+            eps = torch.finfo(torch.float32).eps
+            tol = 3 * eps * (z.abs() + r_k.abs())
+            if not bool(((r_k - clean - z).abs() <= tol).all()):
+                raise AssertionError("analytic noise differs from "
+                                     "sigma_out * z by more than 3 ulp")
+        f64 = ""
+        if b == 512:
+            y64 = xs.double() @ wc.double()
+            clean = imc_mvm.imc_analytic_matmul(xs, wc, raw)
+            err64 = float((clean.double() - y64).abs().max())
+            cublas64 = float((torch.matmul(xs, wc).double() - y64).abs()
+                             .max())
+            clean_ms = time_ms(lambda: imc_mvm.imc_analytic_matmul(xs, wc,
+                                                                   raw))
+            f64 = (f"; noiseless product against float64: max abs "
+                   f"{err64:.3e} (cuBLAS f32 {cublas64:.3e}, of max|y| "
+                   f"{float(y64.abs().max()):.3e}); without noise and ADC "
+                   f"{clean_ms:.4f} ms")
+        ms = time_ms(lambda: imc_mvm.imc_analytic_matmul(xs, wc, spec,
+                                                         seed=seed))
+        plain_ms = wall_ms(lambda: ref.imc_analytic_ref(xs, wc, spec,
+                                                        seed=seed))
+        lib_ms = time_ms(lambda: torch.matmul(xs, wc))
+        products = tf32_products(wc)
+        bound, by = analytic_bound(b, k, m, products)
+        say("kernels", f"{label} b_adc={spec.b_adc}: {frac:.2e} of outputs "
+            f"differ, max_abs_err={float(diff.max()):.3e}; ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms(torch.matmul f32, product "
+            f"only)={lib_ms:.4f} bound_ms={bound:.5f} ({by}, {products} TF32 "
+            f"products, {bound / ms:.1%} of it; 3 products "
+            f"{analytic_bound(b, k, m, 3)[0]:.5f}, float32 outside the "
+            f"tensor cores {2 * b * k * m / F32_FLOPS_PER_S * 1e3:.5f})"
+            + f64)
+        if (b, k, m, bw) == (512, 1536, 6144, pt.bw):
+            row = {"name": "analytic", "route": "cuda",
+                   "source": "src/repro_torch/kernels/csrc/analytic.cu",
+                   "replaces": "src/repro/kernels/imc_mvm.py:284",
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                   "bound_by": by, "library_ms": lib_ms,
+                   "bound_3xtf32_ms": analytic_bound(b, k, m, 3)[0],
+                   "err_f64": err64, "cublas_err_f64": cublas64,
+                   "shape": f"{b}x{k}x{m}, {pt.bw}-bit codes, noise and ADC"}
+        if (b, bw) == (512, 16):
+            row["ms_16bit"] = ms
     row["max_abs_err"] = worst
     return row
 
@@ -545,14 +589,15 @@ def check_analytic_int8(dev):
     512, at the QR 26 dB design point (unsigned activation codes of its bx
     bits, signed weight codes of its bw, sigma_yo of the first 8 rows' code
     product as ``ops.imc_matmul`` makes it), seeded noise and the ADC.
-    Held to the same tolerance as the float32 kernel against its plain
+    Held to the same tolerance as the float kernel against its plain
     version (at most 0.1% of outputs one ADC step apart; without the ADC
     allclose(rtol 1e-5, atol 1e-5 * max|y|); the noise alone within 3 ulp of
     sigma_out * z at one shape).  Timed on operands already in int8, (M, K),
-    against the float32 SIMT kernel (``csrc/analytic.cu``) on the same codes
-    in the order A B B A, against ``torch.matmul`` of the float32 operands
-    (product only) and, where it takes the shape (B > 16), ``torch._int_mm``
-    of the int8 codes (product only, the x bytes read as int8)."""
+    against the float kernel (``csrc/analytic.cu``, split TF32) on the same
+    codes in the order A B B A, against ``torch.matmul`` of the float32
+    operands (product only) and, where it takes the shape (B > 16),
+    ``torch._int_mm`` of the int8 codes (product only, the x bytes read as
+    int8)."""
     import torch
 
     from repro_torch.core.design import optimize
@@ -618,14 +663,14 @@ def check_analytic_int8(dev):
             def int8_call():
                 imc_mvm.analytic_int8_cuda(x8, w8, sig1, spec, seed=seed)
 
-            def simt_call():
+            def float_call():
                 imc_mvm.imc_analytic_matmul(xs, wc, spec, seed=seed)
 
-            t_i8, t_simt = [], []
-            for fn, acc in ((int8_call, t_i8), (simt_call, t_simt),
-                            (simt_call, t_simt), (int8_call, t_i8)):
+            t_i8, t_float = [], []
+            for fn, acc in ((int8_call, t_i8), (float_call, t_float),
+                            (float_call, t_float), (int8_call, t_i8)):
                 acc.append(time_ms(fn))
-            ms, simt_ms = sum(t_i8) / 2, sum(t_simt) / 2
+            ms, float_ms = sum(t_i8) / 2, sum(t_float) / 2
             eager_ms = wall_ms(lambda: imc_mvm.imc_analytic_codes_matmul(
                 xc, wc, sig, spec, seed=seed, **kw))
             plain_ms = wall_ms(lambda: ref.imc_analytic_ref(
@@ -636,16 +681,16 @@ def check_analytic_int8(dev):
                 x8s, w8t = x8.view(torch.int8), w8.t()
                 int_mm_ms = time_ms(lambda: torch._int_mm(x8s, w8t))
             bound, by = int8_bound(b, k, m)
-            if not (ms < min(t_simt)):
+            if not (ms < min(t_float)):
                 raise AssertionError(
                     f"analytic_int8 {b}x{k}x{m}: {t_i8} ms is not faster "
-                    f"than the SIMT kernel's {t_simt} ms")
+                    f"than the float kernel's {t_float} ms")
             say("kernels", f"analytic_int8 {b}x{k}x{m} bx={pt.bx} bw="
                 f"{pt.bw} b_adc={spec.b_adc} tile=64x"
                 f"{imc_mvm.int8_tile(b, m)}: {frac:.2e} of outputs differ, max_abs_err="
                 f"{float(diff.max()):.3e}; ms={t_i8[0]:.4f}/{t_i8[1]:.4f} "
                 f"(eager codes-route call with its casts {eager_ms:.4f}) "
-                f"simt_ms={t_simt[0]:.4f}/{t_simt[1]:.4f} (A B B A) "
+                f"float_ms={t_float[0]:.4f}/{t_float[1]:.4f} (A B B A) "
                 f"plain_ms={plain_ms:.4f} library_ms(torch.matmul f32, "
                 f"product only)={mm_ms:.4f} torch._int_mm_ms="
                 + ("n/a" if int_mm_ms is None else f"{int_mm_ms:.4f}")
@@ -657,54 +702,37 @@ def check_analytic_int8(dev):
                        "replaces": "src/repro/kernels/imc_mvm.py:284",
                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                        "bound_by": by, "library_ms": mm_ms,
-                       "int_mm_ms": int_mm_ms, "simt_ms": simt_ms,
+                       "int_mm_ms": int_mm_ms, "float_ms": float_ms,
                        "shape": f"{b}x{k}x{m}, noise and ADC"}
     row["max_abs_err"] = worst
     return row
 
 
 def seed_bound(b, k, m, bits, n_banks, noisy):
-    """(bound_ms, bound_by) of one seed bit-serial call: int8 codes read
-    once, the float32 noise operand (n_banks, bits, B, M) read once, the
-    float32 output written once; the plane products as one multiply-add (2
-    operations) per (b, k, m) and plane pair at the int8 rate, as
-    ``bitserial_bound`` counts the same plane products without gain."""
-    nbytes = (k * m + b * k + 4 * b * m
+    """(bound_ms, bound_by) of one seed bit-serial call: the float32 codes
+    read once (as the kernel reads them), the float32 noise operand
+    (n_banks, bits, B, M) read once, the float32 output written once; the
+    plane products as one multiply-add (2 operations) per (b, k, m) and
+    plane pair at the int8 rate, as ``bitserial_bound`` counts the same
+    plane products without gain."""
+    nbytes = (4 * (k * m + b * k) + 4 * b * m
               + (4 * n_banks * bits * b * m if noisy else 0))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * bits * b * k * m / INT8_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def check_seed_bitserial(dev):
-    """The frozen seed bit-serial kernel (the kernel bench's baseline)
-    against its plain version at the bench's three ``SHAPES``, on the very
-    inputs the bench times (``kernel_bench.bitserial_operands``: 8-bit ADC,
-    banks of min(512, K) rows, k_h 60, v_c 55, noise std 0.3), and at the
-    main path's bit-serial shape, (4, 1536) @ (1536, 6144) at 7x7 bits,
-    256-row banks, 10-bit ADC and the thermal noise in counts of
-    musicgen-medium's bit-serial substrate, the noise operand drawn from a
-    CUDA generator.  Bit-exact with and without noise (the same operand, exact
-    plane counts, the plain version's rounding and order).  Its noiseless
-    output is ``bitserial.cu``'s noiseless, gain-free output (the same
-    function, its float32 terms summed in another order): allclose(rtol 0,
-    atol ``kernel_bench.order_atol``, 8 float32 ulps of the largest partial
-    sum in the seed's order).  At the bench's shapes ``bitserial.cu`` is
-    also held, with noise and without gain at the bench's counter-hash seed
-    (its ``kernel_noise`` config), against ``ref.imc_bitserial_ref`` under
-    phase 3's rule: at most 0.1% of outputs differ, none by more than one
-    step of the heaviest plane pair.  Times at the main shape: ``ms`` the
-    whole wrapper call with noise (casts, layout, the two pack passes and
-    the main kernel), ``kernel_ms`` the entry point alone on operands in its
-    layout, and ``ms_nonoise`` the wrapper without noise."""
+def seed_main_operands(dev):
+    """The seed kernel's inputs at the main path's bit-serial shape: (4,
+    1536) @ (1536, 6144) codes at 7x7 bits, musicgen-medium's bit-serial
+    substrate (256-row banks, its 10-bit ADC, k_h and v_c), and a noise
+    operand of its thermal noise in counts drawn from a CUDA generator:
+    ``(x_codes, w_codes, noise, spec)``."""
     import torch
 
-    from repro_torch.benchmarks import kernel_bench as kb
     from repro_torch.core.imc_linear import IMCConfig
-    from repro_torch.kernels import build, imc_mvm, ops, ref
+    from repro_torch.kernels import ops, ref
 
-    cases = [(shape, kb.bitserial_operands(shape, dev))
-             for shape in kb.SHAPES]
     mc = ops.matmul_config_from_imc(
         IMCConfig(mode="imc_bitserial", bx=7, bw=7, v_wl=0.7), 1536)
     spec = ref.BitSerialSpec(bx=7, bw=7, b_adc=mc.b_adc, rows=mc.rows,
@@ -718,6 +746,35 @@ def check_seed_bitserial(dev):
     noise = mc.sigma_thermal_counts * torch.randn(
         (-(-1536 // spec.rows), spec.bw * spec.bx, BITSERIAL_SLOTS, 6144),
         generator=gen, device=dev)
+    return xc, wc, noise, spec
+
+
+def check_seed_bitserial(dev):
+    """The frozen seed bit-serial kernel (the kernel bench's baseline)
+    against its plain version at the bench's three ``SHAPES``, on the very
+    inputs the bench times (``kernel_bench.bitserial_operands``: 8-bit ADC,
+    banks of min(512, K) rows, k_h 60, v_c 55, noise std 0.3), and at the
+    main path's bit-serial shape (``seed_main_operands``).  Bit-exact with
+    and without noise (the same operand, exact plane counts, the plain
+    version's rounding and order).  Its noiseless output is
+    ``bitserial.cu``'s noiseless, gain-free output (the same function, its
+    float32 terms summed in another order): allclose(rtol 0, atol
+    ``kernel_bench.order_atol``, 8 float32 ulps of the largest partial sum
+    in the seed's order).  At the bench's shapes ``bitserial.cu`` is also
+    held, with noise and without gain at the bench's counter-hash seed (its
+    ``kernel_noise`` config), against ``ref.imc_bitserial_ref`` under phase
+    3's rule: at most 0.1% of outputs differ, none by more than one step of
+    the heaviest plane pair.  A wrapper call captured in a CUDA graph must
+    hold exactly one kernel.  Times at the main shape: ``ms`` the whole
+    wrapper call with noise, ``ms_nonoise`` without."""
+    import torch
+
+    from repro_torch.benchmarks import kernel_bench as kb
+    from repro_torch.kernels import imc_mvm, ref
+
+    cases = [(shape, kb.bitserial_operands(shape, dev))
+             for shape in kb.SHAPES]
+    xc, wc, noise, spec = seed_main_operands(dev)
     cases.append(((BITSERIAL_SLOTS, 1536, 6144, 7, 7),
                   (xc, wc, noise, spec, spec)))
     worst = 0.0  # against the plain version, with and without noise
@@ -765,24 +822,15 @@ def check_seed_bitserial(dev):
             f"{err:.3e} (atol {atol:.3e}){noisy}")
 
     # the main shape: the last case's operands
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        kb.seed_bitserial_matmul(xc, wc, noise, spec)
+    kernels = kb._graph_kernels(graph)
+    if kernels != 1:
+        raise AssertionError(f"seed_bitserial: a wrapper call holds {kernels}"
+                             " kernels, not one")
     ms = time_ms(lambda: kb.seed_bitserial_matmul(xc, wc, noise, spec))
     ms_nonoise = time_ms(lambda: kb.seed_bitserial_matmul(xc, wc, None, spec))
-    x8, w8, rows_p = kb.seed_layout(xc, wc, spec.rows)
-    xp, wp = kb.seed_scratch(x8, w8, spec)
-    out = torch.empty((BITSERIAL_SLOTS, 6144), dtype=torch.float32,
-                      device=dev)
-
-    def kernel_call():
-        err = build.library("seed_bitserial").seed_bitserial_matmul(
-            *kb.seed_c_args(x8, w8, noise, xp, wp, out, spec, rows_p))
-        if err != 0:
-            raise RuntimeError(f"seed_bitserial launch failed: {err}")
-
-    kernel_ms = time_ms(kernel_call)
-    torch.cuda.synchronize()
-    if not torch.equal(out, kb.seed_bitserial_matmul(xc, wc, noise, spec)):
-        raise AssertionError("seed_bitserial: the kernel alone and the "
-                             "wrapper differ")
     plain_ms = wall_ms(lambda: kb.seed_bitserial_plain(xc, wc, noise, spec),
                        iters=3, warmup=1)
     bits = spec.bw * spec.bx
@@ -791,19 +839,19 @@ def check_seed_bitserial(dev):
     bound_clean, by_clean = seed_bound(BITSERIAL_SLOTS, 1536, 6144, bits,
                                        n_banks, False)
     say("kernels", f"seed_bitserial at {BITSERIAL_SLOTS}x1536x6144 with "
-        f"noise: ms={ms:.4f} (kernel alone {kernel_ms:.4f}) "
-        f"plain_ms={plain_ms:.4f} bound_ms={bound:.5f} ({by}, "
-        f"{bound / kernel_ms:.1%} of it for the kernel alone); without "
-        f"noise ms={ms_nonoise:.4f} bound_ms={bound_clean:.5f} ({by_clean})")
+        f"noise: one kernel per call; ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={bound:.5f} ({by}, {bound / ms:.1%} of it); without "
+        f"noise ms={ms_nonoise:.4f} bound_ms={bound_clean:.5f} ({by_clean},"
+        f" {bound_clean / ms_nonoise:.1%} of it)")
     return {"name": "seed_bitserial", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/seed_bitserial.cu",
             "replaces": "benchmarks/kernel_bench.py:66",
             "launches_are": "wrapper calls in the bench phase, warm-up and "
                             "graph-captured (graph replays uncounted); each "
-                            "call is 3 kernels",
-            "max_abs_err": worst, "ms": ms, "kernel_ms": kernel_ms,
-            "ms_nonoise": ms_nonoise, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "library_ms": None,
+                            "call is one kernel",
+            "max_abs_err": worst, "ms": ms, "ms_nonoise": ms_nonoise,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None,
             "shape": f"{BITSERIAL_SLOTS}x1536x6144, noise operand"}
 
 
@@ -820,7 +868,7 @@ def phase_design(dev):
     w uniform in [-1, 1)).  Prints the delivered SNR_T beside the design's
     SNR_T and SNR_a, and asserts the paper's bound SNR_T <= SNR_a + 1.5 dB.
     Every billed point has codes of 6 or 8 bits, so every call launches the
-    int8 kernel once; one more call with 10-bit codes takes the float32
+    int8 kernel once; one more call with 10-bit codes takes the float
     kernel, as the width rule says.  Returns those launch counts.  Then
     times one whole ``ops.imc_matmul`` call per shape at the QR 26 dB point
     (after the launches are read, so the timing's launches do not count)."""
@@ -868,7 +916,7 @@ def phase_design(dev):
                 f"{pt.snr_t_db:.2f} dB, SNR_a {pt.snr_a_db:.2f} dB; "
                 f"delivered at B=512: {'; '.join(got)} dB")
     # codes wider than 8 bits (assign_precisions allows up to 16) take the
-    # float32 kernel: one call at the QR 26 dB point's ADC with 10-bit codes
+    # float kernel: one call at the QR 26 dB point's ADC with 10-bit codes
     wide = ops.IMCMatmulConfig(mode="imc_analytic", bx=10, bw=10,
                                b_adc=timed_cfg.b_adc,
                                snr_a_db=timed_cfg.snr_a_db, x_signed=False)
@@ -885,7 +933,7 @@ def phase_design(dev):
         raise AssertionError(f"design: launches {launches} for {calls} calls "
                              "of at most 8 bits and one of 10 bits")
     say("design", f"launches: {launches} ({calls} calls of 6- or 8-bit "
-        "codes on the int8 route, one of 10-bit codes on the float32 one)")
+        "codes on the int8 route, one of 10-bit codes on the float one)")
     timed = []
     for k, m in shapes:
         x = torch.rand((512, k), generator=gen, device=dev)
@@ -1916,13 +1964,14 @@ def phase_profile():
 
 
 def phase_tiles(dev):
-    """Instantiations of the analytic kernel's tile template, ``launch<BM,
-    BN, BK, TM, TN>`` of ``csrc/analytic.cu``, timed against each other at
-    every site shape, B = 8 and 512, with the QR 26 dB ADC and noise.  One
-    library holds them all (a source that includes analytic.cu, built with
-    the kernels' flags); each one's output must equal the shipped kernel's
-    bit for bit (every thread sums K in the same order whatever the tile),
-    and the configurations are timed in the order A B ... B A."""
+    """Instantiations of the analytic kernel's tile template, ``launch<WGS,
+    N, MIN_BLOCKS>`` of ``csrc/analytic.cu`` (``TILE_CONFIGS``),
+    timed against each other at every site shape, B = 8 and 512, with the QR
+    26 dB codes, ADC and noise.  One library holds them all (a source that
+    includes analytic.cu, built with the kernels' flags); each one's output
+    must equal the shipped kernel's bit for bit (every tile sums each output
+    in the same order), and the configurations are timed in the order A B
+    ... B A."""
     import ctypes
 
     import torch
@@ -1930,17 +1979,16 @@ def phase_tiles(dev):
     from repro_torch.core.design import optimize
     from repro_torch.kernels import build, imc_mvm, ref
 
-    names = [f"tile_{bm}x{bn}x{bk}_{tm}x{tn}"
-             for bm, bn, bk, tm, tn in TILE_CONFIGS]
+    names = [f"tile_{64 * wgs}x{n}" for wgs, n, _ in TILE_CONFIGS]
     args = ("const float* x, const float* w, float* out, int B, int K, "
             "int M, int has_noise, uint32_t seed, float sigma, int apply_adc,"
             " float adc_delta, float code_lo, float code_hi, void* stream")
     src = OUT / "analytic_tiles.cu"
     src.write_text('#include "analytic.cu"\n' + "".join(
-        f'extern "C" int {n}({args}) {{\n  return launch<{bm}, {bn}, {bk}, '
-        f"{tm}, {tn}>(x, w, out, B, K, M, has_noise, seed, sigma, apply_adc,"
-        f" adc_delta, code_lo, code_hi, (cudaStream_t)stream);\n}}\n"
-        for n, (bm, bn, bk, tm, tn) in zip(names, TILE_CONFIGS)))
+        f'extern "C" int {n}({args}) {{\n  return launch<{wgs}, {bn}, {mb}>('
+        f"x, w, out, B, K, M, Epilogue{{has_noise, seed, sigma, apply_adc, "
+        f"adc_delta, code_lo, code_hi}}, (cudaStream_t)stream);\n}}\n"
+        for n, (wgs, bn, mb) in zip(names, TILE_CONFIGS)))
     lib_path = OUT / "libanalytic_tiles.so"
     proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-I",
                            str(build.CSRC), "-o", str(lib_path), str(src)],
@@ -1965,7 +2013,7 @@ def phase_tiles(dev):
     gen = torch.Generator(device=dev).manual_seed(2)
     for b in (8, 512):
         for k, m in SITE_SHAPES:
-            xs, wc = analytic_operands(gen, b, k, m, pt, dev)
+            xs, wc = analytic_operands(gen, b, k, m, pt.bx, pt.bw, dev)
             shipped = imc_mvm.imc_analytic_matmul(xs, wc, spec, seed=seed)
             out = torch.empty_like(shipped)
 
@@ -1987,12 +2035,72 @@ def phase_tiles(dev):
             times = {n: [] for n in names}
             for i in order:
                 times[names[i]].append(time_ms(lambda: call(fns[i])))
-                times[names[i]].append(wall_ms(lambda: call(fns[i])))
             say("tiles", f"{b}x{k}x{m}: " + "; ".join(
-                f"{n} " + " / ".join(f"{t:.4f}" for t in ts[::2]) + " ms ("
-                "eager " + " / ".join(f"{t:.4f}" for t in ts[1::2]) + ")"
+                f"{n} " + " / ".join(f"{t:.4f}" for t in ts) + " ms"
                 for n, ts in times.items()) + " (outputs equal the shipped "
                 "kernel's bit for bit)")
+
+
+def phase_kprofile(dev):
+    """Where one wrapper call's device time goes: ``torch.profiler``'s
+    kernel rows (device ms per call and launches per call, over 10 calls
+    after 3 warm ones) of the seed bit-serial wrapper at the main shape
+    with its noise operand (``seed_main_operands``), and of the float
+    analytic wrapper at (512, 1536) @ (1536, 6144) with 10-bit codes, each
+    beside its graph-replayed time; then the seed wrapper's graph-replayed
+    time at 1, 4 and 16 batch rows.  With ``--src`` it profiles another
+    checkout's package (its wrappers take the same arguments)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.benchmarks import kernel_bench as kb
+    from repro_torch.kernels import imc_mvm, ref
+
+    calls = 10
+    xc, wc, noise, spec = seed_main_operands(dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    xs, w10 = analytic_operands(gen, 512, 1536, 6144, 10, 10, dev)
+    aspec = ref.AnalyticSpec(b_adc=8, sigma_out=0.05, y_clip=4.0)
+    for label, fn in (
+            ("seed_bitserial (4, 1536) @ (1536, 6144), noise",
+             lambda: kb.seed_bitserial_matmul(xc, wc, noise, spec)),
+            ("analytic (512, 1536) @ (1536, 6144), 10-bit codes",
+             lambda: imc_mvm.imc_analytic_matmul(xs, w10, aspec, seed=7))):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(e.self_device_time_total / 1e3 / calls, e.count / calls,
+                 e.key) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        rows.sort(reverse=True)
+        say("kprofile", f"{label}: graph-replayed {time_ms(fn):.4f} ms per "
+            f"call; device kernels {sum(r[0] for r in rows):.4f} ms per call"
+            ": " + "; ".join(f"{k[:60]} {ms:.4f} ms x{n:g}"
+                             for ms, n, k in rows)
+            + f" (package {Path(kb.__file__).parents[2]})")
+    # how the seed wrapper's time grows with the batch: the part that every
+    # batch row adds (counts and epilogue) against the part it shares (the
+    # weight codes' planes)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    times = []
+    for b in (1, 4, 16):
+        xb = ref.quantize_codes(torch.randn((b, 1536), generator=gen,
+                                            device=dev), spec.bx, True,
+                                torch.tensor(3.0, device=dev))[0]
+        nz = noise[:, :, :1].expand(-1, -1, b, -1).contiguous()
+        times.append((b, time_ms(lambda: kb.seed_bitserial_matmul(
+            xb, wc, nz, spec)), time_ms(lambda: kb.seed_bitserial_matmul(
+                xb, wc, None, spec))))
+    say("kprofile", "seed_bitserial (B, 1536) @ (1536, 6144) by batch rows: "
+        + "; ".join(f"B={b} {t_n:.4f} ms with noise, {t_c:.4f} without"
+                    for b, t_n, t_c in times))
 
 
 def phase_host(dev):
@@ -2121,6 +2229,8 @@ def main() -> int:
         phase_tiles(dev)
     if "host" in phases:
         phase_host(dev)
+    if "kprofile" in phases:
+        phase_kprofile(dev)
     say("done", f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -20,21 +20,21 @@ Counters, per call, from the shapes (they describe the port's CUDA kernels,
 whichever device ran the record):
 
   n_banks          banks of ``rows`` rows
-  x_code_bytes     activation codes as the kernels read them, one byte each
-                   (B x K padded to the kernel's bank layout)
-  w_code_bytes     weight codes, one byte each (K x M, padded likewise)
-  plane_bytes      packed bit planes in device memory: the seed kernel's two
-                   pack passes write Bx*B*Kp/8 + Bw*Kp*M/8 bytes once and its
-                   main kernel reads them; bitserial.cu packs its planes in
-                   registers (0)
+  x_code_bytes     activation codes as the kernels read them: the seed's
+                   float32 codes as the caller holds them (4 B x K);
+                   bitserial.cu's one byte each (B x K padded to its bank
+                   layout)
+  w_code_bytes     weight codes likewise: the seed's float32 (4 K x M);
+                   bitserial.cu's one byte each (K x M, padded likewise)
+  plane_bytes      packed bit planes in device memory: both kernels build
+                   their planes on chip (0)
   noise_bytes      the noise operand: the seed's (n_banks, Bw*Bx, B, M)
                    float32 read from device memory; bitserial.cu's 4 (the
                    uint32 seed passed by value); 0 without noise
   out_bytes        the float32 (B, M) output
   plane_macs       B*K*M*Bw*Bx: one 0/1 multiply-add per (b, k, m) and
                    plane pair
-  kernel_launches  hand-written kernel launches per call (the seed: pack_x,
-                   pack_w and the main kernel; bitserial.cu: one)
+  kernel_launches  hand-written kernel launches per call (one each)
   gathered_kv_bytes_per_step   KV bytes materialized outside the block pool
                    per decode step: the gather path's pool[bt] copy (every
                    slot's whole table, K and V, float32) against the
@@ -63,7 +63,7 @@ from __future__ import annotations
 import ctypes
 import math
 import time
-from typing import List, Tuple
+from typing import List, NamedTuple, Tuple
 
 import torch
 
@@ -85,8 +85,14 @@ PAGED_SHAPES = [
     (8, 16, 8, 4, 2, 64),
 ]
 
-# the seed kernel's bank layout: rows and K in 32-row words, no column tile
-SEED_ROW_STEP = 32
+# the seed kernel's launch plan: columns per CTA, the shared memory its
+# weight plane words may take, batch rows per chunk, warps per CTA
+SEED_COLS = 32
+SEED_WORD_BYTES = 48 * 1024
+SEED_CHUNK = 8
+SEED_WARPS = 8
+# the shared memory one block may use on the H100
+SMEM_BYTES = 232448
 
 # the counter-hash seed of bitserial.cu's noisy config
 NOISE_SEED = 17
@@ -167,40 +173,58 @@ def order_atol(x_codes, w_codes, spec: BitSerialSpec, ulps: int = 8) -> float:
     return ulps * 2.0 ** (math.frexp(float(largest))[1] - 24)
 
 
-def seed_layout(x_codes, w_codes, rows: int):
-    """``(x8, w8, rows_p)``: the codes as bytes (two's complement) in the
-    seed kernel's layout, each bank padded to ``rows_p`` rows (a multiple of
-    32) and K to a multiple of 32, with zero codes."""
-    x8, w8, _, rows_p = imc_mvm.kernel_layout(
-        imc_mvm._code_bytes(x_codes), imc_mvm._code_bytes(w_codes), None,
-        rows, step=SEED_ROW_STEP, tile=1)
-    return x8.contiguous(), w8.contiguous(), rows_p
+class SeedPlan(NamedTuple):
+    """The seed kernel's launch plan for one call (``seed_plan``)."""
+
+    n_banks: int
+    words: int  # 32-row words per bank, even (the count loop takes pairs)
+    group: int  # banks whose plane words share memory at once
+    chunk: int  # batch rows whose input plane words share memory at once
+    b_rows: int  # batch rows per CTA
+    smem_bytes: int
 
 
-def seed_c_args(x8, w8, noise, xp, wp, out, spec: BitSerialSpec,
-                rows_p: int):
+def seed_plan(b: int, k: int, m: int, rows: int, bx: int,
+              bw: int) -> SeedPlan:
+    """How ``csrc/seed_bitserial.cu`` covers a ``(b, k)`` @ ``(k, M)`` call
+    with banks of ``rows`` rows: each bank as ``words`` 32-row words (the
+    rows past a bank's end, in a ragged last bank or a bank height that is
+    not a multiple of 32, are zero codes by predicate), banks in groups
+    whose weight plane words fit ``SEED_WORD_BYTES`` of shared memory, batch
+    rows in chunks of ``SEED_CHUNK``, and a noise buffer per warp;
+    ``smem_bytes`` is what one CTA takes (the entry point refuses more than
+    ``SMEM_BYTES``).  Where the ``m`` columns make fewer 32-column CTAs
+    than the card has SMs, the batch rows are split over CTAs too
+    (``b_rows`` each), so that every SM gets one."""
+    n_banks = -(-k // rows)
+    words = -(-min(rows, k) // 32)
+    words += words % 2
+    nb = max(4, bx, bw)  # the kernel's plane-count instantiation
+    per_bank = 4 * nb * words * SEED_COLS
+    group = max(1, min(n_banks, SEED_WORD_BYTES // per_bank))
+    tiles = -(-m // SEED_COLS)
+    b_rows = -(-b // max(1, min(b, -(-build.SMS // tiles))))
+    chunk = max(1, min(b_rows, SEED_CHUNK))
+    smem = 4 * (group * nb * words * SEED_COLS + chunk * group * words * 8
+                + group * chunk * SEED_COLS + SEED_WARPS * nb * nb * SEED_COLS)
+    return SeedPlan(n_banks, words, group, chunk, b_rows, smem)
+
+
+def seed_c_args(x, w, noise, out, spec: BitSerialSpec):
     """The arguments of the C entry point ``seed_bitserial_matmul`` for
-    operands already in the kernel's layout (:func:`seed_layout`), on the
-    current stream."""
-    b_sz, kp = x8.shape
-    return (x8.data_ptr(), w8.data_ptr(),
-            None if noise is None else noise.data_ptr(), xp.data_ptr(),
-            wp.data_ptr(), out.data_ptr(), b_sz, kp, w8.shape[1], rows_p,
-            spec.bx, spec.bw, int(spec.x_signed),
+    float32 codes ``x`` (B, K) and ``w`` (K, M), contiguous, on the current
+    stream."""
+    b_sz, k = x.shape
+    plan = seed_plan(b_sz, k, w.shape[1], spec.rows, spec.bx, spec.bw)
+    return (x.data_ptr(), w.data_ptr(),
+            None if noise is None else noise.data_ptr(), out.data_ptr(),
+            b_sz, k, w.shape[1], spec.rows, spec.bx, spec.bw,
+            int(spec.x_signed), plan.words, plan.group, plan.chunk,
+            plan.b_rows,
             ctypes.c_float(min(spec.k_h, 3e38)), int(spec.apply_adc),
             ctypes.c_float(spec.v_c / (2.0**spec.b_adc)),
             ctypes.c_float(2.0**spec.b_adc - 1),
-            torch.cuda.current_stream(x8.device).cuda_stream)
-
-
-def seed_scratch(x8, w8, spec: BitSerialSpec):
-    """The packed-plane scratch of one call: (B, Bx, Kp/32) and (Bw, Kp/32,
-    M) words."""
-    b_sz, kp = x8.shape
-    return (torch.empty((b_sz, spec.bx, kp // 32), dtype=torch.int32,
-                        device=x8.device),
-            torch.empty((spec.bw, kp // 32, w8.shape[1]), dtype=torch.int32,
-                        device=x8.device))
+            torch.cuda.current_stream(x.device).cuda_stream)
 
 
 def seed_bitserial_cuda(x_codes, w_codes, noise, spec: BitSerialSpec):
@@ -227,11 +251,12 @@ def seed_bitserial_cuda(x_codes, w_codes, noise, spec: BitSerialSpec):
             raise ValueError(f"noise must be {want} on {dev}, got "
                              f"{tuple(noise.shape)} on {noise.device}")
         noise = noise.to(torch.float32).contiguous()
-    x8, w8, rows_p = seed_layout(x_codes, w_codes, spec.rows)
-    xp, wp = seed_scratch(x8, w8, spec)
+    # the kernel reads the codes as float32 (no copy when they are already)
+    x = x_codes.to(torch.float32).contiguous()
+    w = w_codes.to(torch.float32).contiguous()
     out = torch.empty((b_sz, m), dtype=torch.float32, device=dev)
     err = build.library("seed_bitserial").seed_bitserial_matmul(
-        *seed_c_args(x8, w8, noise, xp, wp, out, spec, rows_p))
+        *seed_c_args(x, w, noise, out, spec))
     if err != 0:
         raise build.launch_failed("seed_bitserial", err)
     seed_bitserial_cuda.launches += 1
@@ -364,27 +389,23 @@ def ms_of(rec: dict) -> float:
 
 def _structure(b, k, m, bx, bw, rows, design: str, noisy: bool) -> dict:
     """Bytes per operand class, plane MACs and launches of one call of
-    ``design`` ("seed" or "kernel"), in the kernel's padded layout (module
-    docstring)."""
+    ``design`` ("seed" or "kernel"), as each kernel reads its operands
+    (module docstring)."""
     n_banks = -(-k // rows)
-    if design == "seed":
-        step, tile = SEED_ROW_STEP, 1
-    else:
-        step, tile = imc_mvm.BITSERIAL_K_STEP, imc_mvm.BITSERIAL_N_TILE
-    rows_p = -(-rows // step) * step
-    kp = n_banks * rows_p if rows % step else -(-k // step) * step
-    mp = -(-m // tile) * tile
-    counters = {"n_banks": n_banks, "x_code_bytes": b * kp,
-                "w_code_bytes": kp * mp, "out_bytes": 4 * b * m,
-                "plane_macs": b * k * m * bx * bw}
-    if design == "seed":
-        counters.update(plane_bytes=(bx * b * kp + bw * kp * m) // 8,
+    counters = {"n_banks": n_banks, "out_bytes": 4 * b * m,
+                "plane_macs": b * k * m * bx * bw, "plane_bytes": 0,
+                "kernel_launches": 1}
+    if design == "seed":  # float32 codes as the caller holds them
+        counters.update(x_code_bytes=4 * b * k, w_code_bytes=4 * k * m,
                         noise_bytes=(n_banks * bw * bx * b * m * 4 if noisy
-                                     else 0),
-                        kernel_launches=3)
-    else:
-        counters.update(plane_bytes=0, noise_bytes=4 if noisy else 0,
-                        kernel_launches=1)
+                                     else 0))
+    else:  # one byte per code in bitserial.cu's padded layout
+        step, tile = imc_mvm.BITSERIAL_K_STEP, imc_mvm.BITSERIAL_N_TILE
+        rows_p = -(-rows // step) * step
+        kp = n_banks * rows_p if rows % step else -(-k // step) * step
+        mp = -(-m // tile) * tile
+        counters.update(x_code_bytes=b * kp, w_code_bytes=kp * mp,
+                        noise_bytes=4 if noisy else 0)
     return counters
 
 

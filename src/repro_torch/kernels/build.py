@@ -38,7 +38,7 @@ _SIGNATURES = {
     "analytic_int8": ("imc_analytic_int8_matmul",
                       [_P] * 4 + [_I] * 6 + [_U, _F, _I, _F, _F, _F, _P]),
     "seed_bitserial": ("seed_bitserial_matmul",
-                       [_P] * 6 + [_I] * 7 + [_F, _I, _F, _F, _P]),
+                       [_P] * 4 + [_I] * 11 + [_F, _I, _F, _F, _P]),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

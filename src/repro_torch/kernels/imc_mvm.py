@@ -16,9 +16,10 @@ is kept for the plain path and for tests; the CUDA kernel does not use it.
 
 ``imc_analytic_matmul`` dispatches the same way: CPU tensors take
 ``ref.imc_analytic_ref``; CUDA tensors launch ``csrc/analytic.cu`` (it
-replaces ``repro/kernels/imc_mvm.py::_analytic_kernel``) or raise.  Its noise
-is the counter-hash normal at global ``(b, m)`` sites, as in the plain
-version.
+replaces ``repro/kernels/imc_mvm.py::_analytic_kernel``: the float product
+on the TF32 tensor cores, each operand split into two TF32 limbs, so it
+keeps float32's precision) or raise.  Its noise is the counter-hash normal
+at global ``(b, m)`` sites, as in the plain version.
 
 ``imc_analytic_codes_matmul`` is the analytic matmul of integer codes of at
 most 8 bits, ``ADC_MPC((x_codes @ w_codes) / sigma_yo + sigma_out z)``: CPU
@@ -63,17 +64,16 @@ def _code_bytes(codes):
 BITSERIAL_K_STEP, BITSERIAL_N_TILE = 16, 8
 
 
-def kernel_layout(x, w, w_gain, rows: int, step: int = BITSERIAL_K_STEP,
-                  tile: int = BITSERIAL_N_TILE):
-    """``(x, w, w_gain, rows)`` padded to a bit-serial kernel's layout (by
-    default the bit-serial kernel's, ``step`` 16 and ``tile`` 8): each
-    bank's rows to a multiple of ``step`` when ``rows`` is not one (else only
+def kernel_layout(x, w, w_gain, rows: int):
+    """``(x, w, w_gain, rows)`` padded to the bit-serial kernel's layout:
+    each bank's rows to a multiple of 16 when ``rows`` is not one (else only
     K, at the end), with zero codes (gain 1), and the columns to a multiple
-    of ``tile`` with zero codes.  Banks keep their index and the live (b, m)
+    of 8 with zero codes.  Banks keep their index and the live (b, m)
     their place, so the result's first M columns, and its noise sites, are
     those of the unpadded call.  Operands already in the layout come back as
     they are."""
     k, m = w.shape
+    step, tile = BITSERIAL_K_STEP, BITSERIAL_N_TILE
     pad = torch.nn.functional.pad
     if rows % step:
         n_banks = -(-k // rows)
@@ -197,13 +197,24 @@ def analytic_cuda(x, w_codes, spec: AnalyticSpec, seed: Optional[int] = None):
         raise ValueError(f"inner dimensions differ: {k} vs {k2}")
     xf = x.to(torch.float32).contiguous()
     wf = w_codes.to(torch.float32).contiguous()
+    # the kernel's 16-byte copies: K and M in fours (zero codes add
+    # nothing; padded columns are cut off), operands 16-byte aligned
+    pk, pm = -k % 4, -m % 4
+    if pk:
+        xf = torch.nn.functional.pad(xf, (0, pk))
+    if pk or pm:
+        wf = torch.nn.functional.pad(wf, (0, pm, 0, pk))
+    if xf.data_ptr() % 16:
+        xf = xf.clone()
+    if wf.data_ptr() % 16:
+        wf = wf.clone()
     has_noise = seed is not None and spec.sigma_out > 0.0
     half = 2.0 ** (spec.b_adc - 1)
-    out = torch.empty((b_sz, m), dtype=torch.float32, device=dev)
+    out = torch.empty((b_sz, m + pm), dtype=torch.float32, device=dev)
     lib = build.library("analytic")
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.imc_analytic_matmul(
-        xf.data_ptr(), wf.data_ptr(), out.data_ptr(), b_sz, k, m,
+        xf.data_ptr(), wf.data_ptr(), out.data_ptr(), b_sz, k + pk, m + pm,
         int(has_noise), ctypes.c_uint32(int(seed or 0) & 0xFFFFFFFF),
         ctypes.c_float(spec.sigma_out), int(spec.apply_adc),
         ctypes.c_float(2.0 * spec.y_clip / 2.0**spec.b_adc),
@@ -211,7 +222,7 @@ def analytic_cuda(x, w_codes, spec: AnalyticSpec, seed: Optional[int] = None):
     if err != 0:
         raise build.launch_failed("analytic", err)
     analytic_cuda.launches += 1
-    return out
+    return out if not pm else out[:, :m].contiguous()
 
 
 analytic_cuda.launches = 0

@@ -4,10 +4,11 @@
 noise constants from the core analytics, and runs the integer-code matmul:
 the bit-serial kernel (``imc_bitserial``), the analytic folded-noise kernel
 (``imc_analytic``: the int8 code product for codes of at most 8 bits, the
-float32 kernel for wider ones) or a plain code product (``fakequant``).  On the card the
-two IMC modes always launch their CUDA kernels; on the CPU their plain
-versions run.  (The JAX serve path reaches the plain oracles only because
-interpret-mode Pallas is slow off the TPU; the math is the same.)
+split-TF32 float kernel for wider ones) or a plain code product
+(``fakequant``).  On the card the two IMC modes always launch their CUDA
+kernels; on the CPU their plain versions run.  (The JAX serve path reaches
+the plain oracles only because interpret-mode Pallas is slow off the TPU;
+the math is the same.)
 
 Noise is driven by an explicit integer ``seed``: the JAX reference derives
 its kernel seed from a PRNG key (``_seed_from_key``), which PyTorch cannot
@@ -136,7 +137,7 @@ def imc_matmul(x, w, cfg: IMCMatmulConfig, seed: Optional[int] = None,
                             y_clip=cfg.y_clip_sigmas, apply_adc=True)
         noise_seed = seed if sigma_out > 0.0 else None
         # codes of at most 8 bits take the exact int8 code product; wider
-        # ones (assign_precisions allows 16 bits) the float32 kernel
+        # ones (assign_precisions allows 16 bits) the split-TF32 float kernel
         if imc_mvm.int8_route_fits(cfg.bx, cfg.bw, cfg.x_signed,
                                    wc.shape[0]):
             y = imc_mvm.imc_analytic_codes_matmul(

@@ -102,27 +102,51 @@ def test_seed_dispatch_takes_the_plain_version_on_the_cpu():
         kb.seed_bitserial_cuda(xc, wc, None, spec)
 
 
-@pytest.mark.parametrize("k,rows", [(100, 40), (96, 32), (70, 64)])
-def test_seed_layout_pads_banks_to_32_row_words(k, rows):
-    """Each bank keeps its index and its rows their place; the padding is
-    zero codes (all planes zero), so the kernel's counts are the plain
-    version's."""
+@pytest.mark.parametrize("k,rows", [(100, 40), (96, 32), (70, 64),
+                                    (1536, 256)])
+def test_seed_plan_covers_ragged_banks(k, rows):
+    """The seed kernel's plan (``seed_plan``): each bank as an even number
+    of 32-row words, at most one of them past what the bank needs; groups
+    that cover every bank once and fit shared memory.  Plane words built as
+    the kernel builds them (a code's low 8 bits from an add of 1.5 * 2^23;
+    row r of word d live while 32 d + r is below the bank's rows, else a
+    zero code) give each bank's plane dots of the plain version, the ragged
+    last bank's included."""
     rng = np.random.default_rng(1)
-    xc, wc = (torch.tensor(a) for a in _codes(rng, 3, k, 5, 6, 6, True))
-    x8, w8, rows_p = kb.seed_layout(xc, wc, rows)
-    n_banks = -(-k // rows)
-    assert rows_p % 32 == 0 and x8.shape[1] % 32 == 0
-    assert x8.dtype == w8.dtype == torch.uint8
-    assert -(-x8.shape[1] // rows_p) == n_banks
-    for bank in range(n_banks):
+    b, m, bx, bw = 3, 5, 6, 5
+    xc, wc = (torch.tensor(a) for a in _codes(rng, b, k, m, bx, bw, True))
+    plan = kb.seed_plan(b, k, m, rows, bx, bw)
+    need = -(-min(rows, k) // 32)
+    assert plan.n_banks == -(-k // rows)
+    assert plan.words % 2 == 0 and need <= plan.words <= need + 1
+    starts = range(0, plan.n_banks, plan.group)
+    assert sum(min(plan.group, plan.n_banks - g) for g in starts) == \
+        plan.n_banks
+    assert 1 <= plan.chunk <= plan.b_rows and plan.smem_bytes <= kb.SMEM_BYTES
+    # 1 column tile: the 3 batch rows split over CTAs of one row each
+    assert plan.b_rows == 1
+
+    def low_bits(codes):
+        return (codes + 12582912.0).view(torch.int32) & 0xFF
+
+    xb, wb = low_bits(xc), low_bits(wc)
+    spec = ref.BitSerialSpec(bx=bx, bw=bw, rows=rows, x_signed=True,
+                             apply_adc=False)
+    for bank, terms in enumerate(kb._seed_banks(xc, wc, None, spec)):
         live = min(rows, k - bank * rows)
-        src = slice(bank * rows, bank * rows + live)
-        dst = slice(bank * rows_p, bank * rows_p + live)
-        assert torch.equal(x8[:, dst], (xc[:, src].to(torch.int16) & 0xFF)
-                           .to(torch.uint8))
-        assert torch.equal(w8[dst], (wc[src].to(torch.int16) & 0xFF)
-                           .to(torch.uint8))
-    assert int(x8.sum()) == int((xc.to(torch.int16) & 0xFF).sum())
+        counts = torch.zeros((bw, bx, b, m), dtype=torch.int64)
+        for word in range(plan.words):
+            r = 32 * word + torch.arange(32)
+            ok = r < live
+            rows_k = (bank * rows + r).clamp(max=k - 1)
+            xw = torch.where(ok, xb[:, rows_k], 0).to(torch.int64)
+            ww = torch.where(ok[:, None], wb[rows_k], 0).to(torch.int64)
+            for i in range(bw):
+                for j in range(bx):
+                    counts[i, j] += ((xw >> j) & 1) @ ((ww >> i) & 1)
+        assert len(terms) == bw * bx
+        for t, (_, dp) in enumerate(terms):
+            assert torch.equal(counts[t // bx, t % bx].to(torch.float32), dp)
 
 
 # ---------------------------------------------------------------------------
@@ -197,14 +221,15 @@ def test_kernel_bench_records_on_the_cpu(monkeypatch):
     recs = kb.bench_records("cpu", iters=1)
     by = {(r["bench"], r.get("config")): r for r in recs}
     seed_n = by[("bitserial", "seed_baseline_noise")]
-    # one (96-row) bank; K padded to 96 (32-row words) for the seed, 96 (16)
-    # for bitserial.cu, whose columns pad to 24
+    # one (96-row) bank; the seed reads the float32 codes as they are, one
+    # launch, no plane scratch; bitserial.cu one byte per code, K padded to
+    # 96 (16-row steps) and its columns to 24
     assert seed_n["noise_bytes"] == 1 * 5 * 4 * 8 * 20 * 4
-    assert seed_n["x_code_bytes"] == 8 * 96
-    assert seed_n["w_code_bytes"] == 96 * 20
-    assert seed_n["plane_bytes"] == (4 * 8 * 96 + 5 * 96 * 20) // 8
+    assert seed_n["x_code_bytes"] == 4 * 8 * 96
+    assert seed_n["w_code_bytes"] == 4 * 96 * 20
+    assert seed_n["plane_bytes"] == 0
     assert seed_n["plane_macs"] == 8 * 96 * 20 * 20
-    assert seed_n["kernel_launches"] == 3
+    assert seed_n["kernel_launches"] == 1
     kern = by[("bitserial", "kernel_noise")]
     assert kern["noise_bytes"] == 4 and kern["w_code_bytes"] == 96 * 24
     summary = by[("bitserial_summary", None)]

@@ -11,12 +11,13 @@ Tolerances: paged attention ctx allclose(rtol=1e-5, atol=1e-5) (the kernel
 sums in another order), pools bit-exact outside garbage block 0; the
 bit-serial kernel bit-exact, with and without noise and gain (it rounds every
 step as the plain version does, and both take gain-weighted plane sums in
-float64); both analytic kernels (the float32 one and the int8 codes route)
+float64); both analytic kernels (the float one and the int8 codes route)
 within one ADC step on fewer than 0.1% of the outputs with the ADC (the
-float32 kernel's K order differs from cuBLAS; the int8 kernel's exact code
-product is divided by sigma_yo once, where the plain version divides every
-code first), allclose(rtol 1e-5, atol 1e-5 * max|y|) without it, and their
-noise within 3 ulp of the plain version's draw.
+float kernel's split-TF32 sums run in another order than cuBLAS's; the
+int8 kernel's exact code product is divided by sigma_yo once, where the
+plain version divides every code first), allclose(rtol 1e-5, atol 1e-5 *
+max|y|) without it, and their noise within 3 ulp of the plain version's
+draw.
 """
 import numpy as np
 import pytest
@@ -206,10 +207,42 @@ def test_analytic_kernel_repeats_bit_for_bit(dev):
                                                           seed=8))
 
 
+@pytest.mark.parametrize("b", [8, 512])
+def test_analytic_kernel_with_16_bit_codes(dev, b):
+    """Weight codes of 16 bits split into two TF32 limbs: against the plain
+    version with phase 3's tolerance, and the noiseless product against a
+    float64 one within 1e-5 of max|y| (as close as cuBLAS float32 is held
+    to the plain version)."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    x = torch.rand((b, 1536), generator=gen, device=dev)
+    w = torch.rand((1536, 6144), generator=gen, device=dev) * 2 - 1
+    xc, _ = ref.quantize_codes(x, 6, False, x.abs().max())
+    wc, _ = ref.quantize_codes(w, 16, True, w.abs().max())
+    assert bool(((wc.view(torch.int32) & 0x1FFF) != 0).any())  # two limbs
+    xs = ref.true_div(xc, (xc[:8] @ wc).std(unbiased=False) + 1e-9)
+    spec = ref.AnalyticSpec(b_adc=8, sigma_out=0.05, y_clip=4.0)
+    raw = ref.AnalyticSpec(b_adc=8, sigma_out=0.05, y_clip=4.0,
+                           apply_adc=False)
+    y_k = imc_mvm.imc_analytic_matmul(xs, wc, spec, seed=5)
+    y_p = ref.imc_analytic_ref(xs, wc, spec, seed=5)
+    r_k = imc_mvm.imc_analytic_matmul(xs, wc, raw, seed=5)
+    r_p = ref.imc_analytic_ref(xs, wc, raw, seed=5)
+    clean = imc_mvm.imc_analytic_matmul(xs, wc, raw)
+    y64 = xs.double() @ wc.double()
+    torch.cuda.synchronize()
+    d = (y_k - y_p).abs()
+    assert float(d.max()) <= 2 * spec.y_clip / 2**spec.b_adc + 1e-6
+    assert float((d > 1e-6).float().mean()) < 1e-3
+    torch.testing.assert_close(r_k, r_p, rtol=1e-5,
+                               atol=1e-5 * float(r_p.abs().max()))
+    assert float((clean.double() - y64).abs().max()) <= \
+        1e-5 * float(y64.abs().max())
+
+
 def test_analytic_failed_launch_raises(dev):
-    """A launch the card refuses (more row tiles than the grid allows)
+    """A launch the card refuses (more 128-row tiles than the grid allows)
     raises; nothing falls back to the plain version."""
-    b = 65536 * 64 + 1
+    b = 65536 * 128 + 1
     xs = torch.zeros((b, 1), device=dev)
     wc = torch.zeros((1, 1), device=dev)
     before = imc_mvm.analytic_cuda.launches
@@ -546,6 +579,37 @@ def test_seed_bitserial_kernel_matches_plain(dev, shape):
         torch.cuda.synchronize()
         assert torch.equal(y_k, y_p), float((y_k - y_p).abs().max())
     assert kb.seed_bitserial_cuda.launches == before + 2
+
+
+def test_seed_bitserial_call_is_one_kernel_without_scratch(dev):
+    """A wrapper call at the main path's shape is one kernel (a CUDA graph
+    of one call holds one kernel node), and allocates nothing but its
+    output."""
+    from repro_torch.benchmarks import kernel_bench as kb
+
+    b, k, m, rows = 4, 1536, 6144, 256
+    xc, wc = _codes(dev, b, k, m, 7, 7, True)
+    spec = ref.BitSerialSpec(bx=7, bw=7, b_adc=10, rows=rows, k_h=120.0,
+                             v_c=100.0, x_signed=True)
+    noise = 0.3 * torch.randn((k // rows, 49, b, m), device=dev)
+    kb.seed_bitserial_matmul(xc, wc, noise, spec)  # built, attribute set
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        kb.seed_bitserial_matmul(xc, wc, noise, spec)
+    assert kb._graph_kernels(graph) == 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = kb.seed_bitserial_cuda.launches
+    y = kb.seed_bitserial_matmul(xc, wc, noise, spec)
+    torch.cuda.synchronize()
+    assert kb.seed_bitserial_cuda.launches == before + 1
+    assert torch.cuda.max_memory_allocated() - base == \
+        torch.cuda.memory_allocated() - base  # nothing freed: no scratch
+    assert torch.cuda.memory_allocated() - base <= -(-y.numel() * 4 // 512) \
+        * 512
+    assert torch.equal(y, kb.seed_bitserial_plain(xc, wc, noise, spec))
 
 
 @pytest.mark.parametrize("rows,bx,bw", [(256, 7, 7), (512, 6, 6), (64, 4, 5)])

@@ -427,6 +427,109 @@ def test_analytic_matmul_matches_reference(shape):
                                atol=1e-5 * float(np.abs(noisy).max()))
 
 
+# the float analytic kernel's arithmetic (csrc/analytic.cu): each operand
+# split into two TF32 limbs, x_lo w_hi + x_hi w_lo + x_hi w_hi on the tensor
+# cores
+
+
+def _tf32_rna(v):
+    """``cvt.rna.tf32.f32`` in plain torch: float32 rounded to TF32's 10
+    mantissa bits, half away from zero (half a TF32 ulp added to the
+    magnitude bits, the 13 bits below cleared)."""
+    bits = v.to(torch.float32).view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_split(v):
+    hi = _tf32_rna(v)
+    return hi, _tf32_rna(v - hi)
+
+
+def _is_tf32(v):
+    return bool(((v.view(torch.int32) & 0x1FFF) == 0).all())
+
+
+def test_tf32_split_of_codes_within_2_11_has_no_lo_limb():
+    """Integer codes with |w| <= 2^11 (every code of at most 12 bits, so
+    every billed design point's) are one TF32 limb: the kernel skips x_hi
+    w_lo on them."""
+    w = torch.arange(-2**11, 2**11 + 1, dtype=torch.float32)
+    hi, lo = _tf32_split(w)
+    assert torch.equal(hi, w) and not bool(lo.any())
+    assert _is_tf32(w)
+    assert not _is_tf32(torch.tensor([2.0**11 + 1]))
+
+
+@pytest.mark.parametrize("bits", [12, 13, 14, 15, 16])
+def test_tf32_split_of_wide_codes_is_exact_in_two_limbs(bits):
+    """Signed codes of 12 to 16 bits are hi + lo exactly, both TF32."""
+    w = torch.arange(-2 ** (bits - 1), 2 ** (bits - 1), dtype=torch.float32)
+    hi, lo = _tf32_split(w)
+    assert _is_tf32(hi) and _is_tf32(lo)
+    assert torch.equal(hi.double() + lo.double(), w.double())
+    assert bool(lo.any()) == (bits > 12)
+
+
+def _design_operands(shape, bx, bw):
+    """Design-point operands from a numpy seed: unsigned ``bx``-bit codes of
+    uniform activations over sigma_yo (the std of the first 8 rows' code
+    product), signed ``bw``-bit codes of uniform weights."""
+    b, k, m = shape
+    rng = np.random.default_rng(sum(shape) + bw)
+    xc = np.clip(np.round(rng.uniform(size=(b, k)) * 2.0**bx), 0,
+                 2.0**bx - 1)
+    wc = np.clip(np.round(rng.uniform(-1, 1, size=(k, m)) * 2.0 ** (bw - 1)),
+                 -(2.0 ** (bw - 1)), 2.0 ** (bw - 1) - 1)
+    sig = np.float32(np.std(xc[:8] @ wc) + 1e-9)
+    return (xc.astype(np.float32) / sig), wc.astype(np.float32)
+
+
+def _split_tf32_product(x, w):
+    """The kernel's product: x_lo w_hi + x_hi w_lo + x_hi w_hi of the TF32
+    limbs (x_lo w_lo dropped), each limb product exact in float64, rounded
+    once to float32."""
+    xh, xl = _tf32_split(x)
+    wh, wl = _tf32_split(w)
+    y = (xl.double() @ wh.double() + xh.double() @ wl.double()
+         + xh.double() @ wh.double())
+    return y.to(torch.float32)
+
+
+@pytest.mark.parametrize("bw", ["design", 16])
+@pytest.mark.parametrize("shape", [(8, 1536, 64), (64, 384, 96)])
+def test_split_tf32_product_within_phase3_tolerance(shape, bw):
+    """The emulated three-product sum on seeded operands of the QR 26 dB
+    design point (its bx-bit codes, its bw-bit weight codes or 16-bit ones,
+    two limbs), through the plain epilogue (noise seed 99, the design's
+    ADC), against ``ref.imc_analytic_ref`` and JAX's Pallas kernel in
+    interpret mode under phase 3's tolerance: at most 0.1% of outputs one
+    ADC step apart; without the ADC allclose(rtol 1e-5, atol 1e-5 *
+    max|y|)."""
+    from repro_torch.core.design import optimize
+
+    pt = optimize(n=512, snr_t_target_db=26.0, kinds=("qr",))
+    xs, wc = _design_operands(shape, pt.bx, pt.bw if bw == "design" else bw)
+    kw = dict(b_adc=pt.b_adc, sigma_out=10.0 ** (-pt.snr_a_db / 20.0),
+              y_clip=4.0)
+    spec, raw = t_ref.AnalyticSpec(**kw), t_ref.AnalyticSpec(
+        apply_adc=False, **kw)
+    x_t, w_t = torch.tensor(xs), torch.tensor(wc)
+    b, _, m = shape
+    y = _split_tf32_product(x_t, w_t) + spec.sigma_out * \
+        t_ref.analytic_output_noise(99, b, m)
+    y_raw = y.numpy()
+    y_adc = t_ref.mpc_adc(y, spec.b_adc, spec.y_clip).numpy()
+    want_raw = t_ref.imc_analytic_ref(x_t, w_t, raw, seed=99).numpy()
+    np.testing.assert_allclose(y_raw, want_raw, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(want_raw).max()))
+    _adc_close(t_ref.imc_analytic_ref(x_t, w_t, spec, seed=99).numpy(),
+               y_adc, spec)
+    y_j = j_mvm.imc_analytic_matmul(jnp.asarray(xs), jnp.asarray(wc),
+                                    j_ref.AnalyticSpec(**kw), seed=99,
+                                    interpret=True)
+    _adc_close(np.asarray(y_j), y_adc, spec)
+
+
 @pytest.mark.parametrize("x_signed", [True, False])
 def test_imc_matmul_analytic_noiseless_matches_reference(x_signed):
     """``seed=None`` against JAX's ``key=None``: the same quantization, the
