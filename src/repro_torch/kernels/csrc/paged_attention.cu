@@ -10,10 +10,17 @@
 // What bounds it: bytes.  A decode step reads each live K/V row of the slot
 // once (2 * ctx * Hkv * hd * 2 B per slot in bf16) and does ~4 flops per
 // byte, far below the card's ~295 flops/byte balance point.  Design:
-//  * one CTA per (group of up to 8 kv heads, slot, split of split_rows
-//    logical rows), one warp per head.  A logical row of the pool holds the
-//    group's heads side by side, heads * hd contiguous elements, so the CTA
-//    copies whole rows (1 KB for 8 heads of 64 bf16);
+//  * one CTA per (group of up to 8 kv heads, chunk of up to GM query rows
+//    of each head, slot, split of split_rows logical rows), one warp per
+//    head.  A logical row of the pool holds the group's heads side by side,
+//    heads * hd contiguous elements, so the CTA copies whole rows (1 KB for
+//    8 heads of 64 bf16).  A group of more query rows per kv head than the
+//    plan's GM (2; granite-20b has 48 on one kv head) takes one launch all
+//    the same: each chunk of GM rows is a CTA of its own on the grid's x
+//    axis, and the chunks' CTAs read the same K/V rows (L2 holds them);
+//    only chunk 0 writes the new row, so the pools are written once.  (The
+//    register state grows with GM: at 4 and 8 it spills, and one chunk of 8
+//    ran 1.4-1.9x slower than four or twenty-four chunks of 2);
 //  * the pool offset of each row of the split is computed once at the start
 //    (its block-table entry read once, together with the queries) into
 //    shared memory, so the copies wait on no further global load and do no
@@ -59,7 +66,7 @@ namespace {
 constexpr int kStages = 3;
 constexpr int kRows = 4;      // rows of a stage per row group of a warp
 constexpr int kMaxHeads = 8;  // kv heads per CTA, one warp each
-constexpr int kMaxG = 8;      // query rows per kv head
+constexpr int kMaxG = 8;      // query rows of a kv head per CTA
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -123,7 +130,11 @@ paged_kernel(const float* __restrict__ q, const T* __restrict__ kn,
   constexpr int kVec = Vec<T>::kN;
   constexpr int kRowGroups = 32 / LPR;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int hgroup = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
+  // x: (head group, query chunk); y: slot; z: split
+  const int q_chunks = (g + GM - 1) / GM;
+  const int hgroup = blockIdx.x / q_chunks, qc = blockIdx.x % q_chunks;
+  const int b = blockIdx.y, sp = blockIdx.z;
+  const int g0 = qc * GM;  // this CTA's first query row of each head
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int heads = plan.heads, sr = plan.stage_rows;
   const int h0 = hgroup * heads, h = h0 + warp;
@@ -159,8 +170,9 @@ paged_kernel(const float* __restrict__ q, const T* __restrict__ kn,
       const int vi = v * LPR + li;
 #pragma unroll
       for (int e = 0; e < kVec; ++e) {
-        qv[gg][v][e] = (gg < g && vi < nvr)
-            ? q[(((size_t)b * hkv + h) * g + gg) * hd + vi * kVec + e] : 0.0f;
+        qv[gg][v][e] = (g0 + gg < g && vi < nvr)
+            ? q[(((size_t)b * hkv + h) * g + g0 + gg) * hd + vi * kVec + e]
+            : 0.0f;
         acc[gg][v][e] = 0.0f;
       }
     }
@@ -171,9 +183,9 @@ paged_kernel(const float* __restrict__ q, const T* __restrict__ kn,
   const int tail = p / bs, off = p - tail * bs;
   const int limit = min(p + 1, max_blocks * bs);  // rows 0..p, within capacity
 
-  if (sp == 0) {
+  if (sp == 0 && qc == 0) {
     // the one new row: the slot's tail block for an active in-range row,
-    // garbage block 0 otherwise
+    // garbage block 0 otherwise (written by one query chunk only)
     const int dest = (tail >= max_blocks || !active) ? 0 : bt_row[tail];
     const size_t at = ((size_t)dest * bs + off) * hkv * hd + (size_t)h0 * hd;
     const size_t from = ((size_t)b * hkv + h0) * hd;
@@ -277,7 +289,7 @@ paged_kernel(const float* __restrict__ q, const T* __restrict__ kn,
 #pragma unroll
         for (int u = 0; u < kRows; ++u)
           sc[u] += __shfl_xor_sync(0xffffffffu, sc[u], o);
-      if (gg >= g) continue;
+      if (g0 + gg >= g) continue;
       // scores in the base-2 domain: exp(s - m) = exp2(s log2 e - m log2 e)
       float m_new = m[gg];
 #pragma unroll
@@ -335,8 +347,8 @@ paged_kernel(const float* __restrict__ q, const T* __restrict__ kn,
   if (grp == 0) {
 #pragma unroll
     for (int gg = 0; gg < GM; ++gg) {
-      if (gg >= g) break;
-      const size_t pi = (part0 + sp) * g + gg;
+      if (g0 + gg >= g) break;
+      const size_t pi = (part0 + sp) * g + g0 + gg;
       if (used > 1 && li == 0) {
         part_ml[2 * pi] = m[gg];
         part_ml[2 * pi + 1] = l[gg];
@@ -351,7 +363,7 @@ paged_kernel(const float* __restrict__ q, const T* __restrict__ kn,
           if (used > 1)
             part_acc[pi * hd + d] = acc[gg][v][e];
           else
-            ctx[(((size_t)b * hkv + h) * g + gg) * hd + d] =
+            ctx[(((size_t)b * hkv + h) * g + g0 + gg) * hd + d] =
                 acc[gg][v][e] / fmaxf(l[gg], 1e-30f);
         }
       }
@@ -410,7 +422,7 @@ int launch(const void* q, const void* kn, const void* vn, void* pk, void* pv,
   }
   float* part_ml = (float*)scratch;
   float* part_acc = part_ml + 2 * (size_t)b * hkv * plan.n_splits * g;
-  dim3 grid(hkv / plan.heads, b, plan.n_splits);
+  dim3 grid(hkv / plan.heads * ((g + GM - 1) / GM), b, plan.n_splits);
   kern<<<grid, plan.heads * 32, smem, stream>>>(
       (const float*)q, (const T*)kn, (const T*)vn, (T*)pk, (T*)pv,
       (const int*)bt, (const int*)pos, (const int*)act, part_ml, part_acc,
@@ -474,8 +486,9 @@ int launch_t(int lpr, int nv, int gm, const void* q, const void* kn,
 }  // namespace
 
 // The plan (heads per CTA, stage rows, split rows, splits, lanes per row,
-// vectors per lane, instantiated query rows) comes from
-// paged_attention.plan_split.  scratch: 2 * B * Hkv * n_splits * G +
+// vectors per lane, instantiated query rows per CTA) comes from
+// paged_attention.plan_split; G > gm runs in ceil(G / gm) chunks of gm
+// query rows, each a CTA of its own.  scratch: 2 * B * Hkv * n_splits * G +
 // B * Hkv * n_splits * G * hd floats (unused with one split).
 extern "C" int paged_attention_decode(
     const void* q, const void* kn, const void* vn, void* pk, void* pv,
@@ -486,7 +499,8 @@ extern "C" int paged_attention_decode(
     int use_cap, void* stream) {
   if (b == 0) return 0;
   const int elt = dtype == 0 ? 4 : 2;
-  if (g < 1 || g > gm || gm > kMaxG || hd < 1 || hd > 256 ||
+  if (g < 1 || gm < 1 || gm > kMaxG || (gm & (gm - 1)) != 0 || hd < 1 ||
+      hd > 256 ||
       (hd * elt) % 16 != 0 || lpr * nv * 16 < hd * elt || bs < 1 ||
       max_blocks < 1 || heads < 1 || heads > kMaxHeads || hkv % heads != 0 ||
       stage_rows != kRows * 32 / lpr || split_rows < stage_rows ||

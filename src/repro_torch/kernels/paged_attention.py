@@ -92,9 +92,13 @@ def decode_plain(q, k_new, v_new, pk, pv, bt, pos_b, active=None, *,
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# the CUDA kernel's plan: at most 8 kv heads per CTA (one warp each), and
-# enough splits of each slot's rows for about two CTAs per SM of an H100
+# the CUDA kernel's plan: at most 8 kv heads per CTA (one warp each), at
+# most 2 query rows of each head per CTA (larger groups take several CTAs:
+# with 4 or 8 the warps' register state spills; chip_smoke.py --phases
+# device,chunks times the choices), and enough splits of each slot's rows
+# for about two CTAs per SM of an H100
 MAX_HEADS_PER_CTA = 8
+MAX_G_PER_CTA = 2
 STAGES = 3  # kStages of csrc/paged_attention.cu
 ROWS_PER_GROUP = 4  # kRows of csrc/paged_attention.cu
 MIN_SPLIT_ROWS = 64
@@ -103,10 +107,11 @@ MIN_SPLIT_ROWS = 64
 @dataclasses.dataclass(frozen=True)
 class SplitPlan:
     """How ``csrc/paged_attention.cu`` covers a call: a grid of (head
-    groups, slots, ``n_splits``) CTAs, each over ``heads`` kv heads and up to
-    ``split_rows`` logical rows, streamed ``stage_rows`` at a time; ``lpr``
-    lanes hold a row as ``nv`` 16-byte vectors each; ``gm`` query rows are
-    instantiated per head."""
+    groups x ``q_chunks``, slots, ``n_splits``) CTAs, each over ``heads`` kv
+    heads, ``gm`` query rows of each (a chunk: G > gm takes ``q_chunks``
+    CTAs) and up to ``split_rows`` logical rows, streamed
+    ``stage_rows`` at a time; ``lpr`` lanes hold a row as ``nv`` 16-byte
+    vectors each."""
 
     heads: int
     head_groups: int
@@ -116,6 +121,7 @@ class SplitPlan:
     lpr: int
     nv: int
     gm: int
+    q_chunks: int
     scratch_floats: int
     smem_bytes: int
 
@@ -146,15 +152,21 @@ def _pow2_at_least(n: int) -> int:
 def plan_split(b: int, hkv: int, g: int, hd: int, bs: int, max_blocks: int,
                elt: int, sms: int = build.SMS) -> SplitPlan:
     """The kernel's plan from the shapes alone (no position is read on the
-    host): the largest divisor of Hkv up to 8 as heads per CTA; stage rows
+    host): the largest divisor of Hkv up to 8 as heads per CTA; query rows
+    per CTA the next power of two of G up to ``MAX_G_PER_CTA`` (a power of
+    two up to 8), in ``ceil(G / MAX_G_PER_CTA)`` chunks beyond; stage rows
     four per row group of a warp (128 / lpr: at most 32 KB of K and V for 8
     heads, 64 KB for hd * elt = 1024 bytes, where nv = 2);
     split rows, a multiple of the stage rows and at least MIN_SPLIT_ROWS,
     such that a slot at full capacity spans about ``2 * sms / (B * head
-    groups)`` splits.  Raises for shapes the kernel does not take."""
-    if not 1 <= g <= 8 or not 1 <= hd <= 256 or (hd * elt) % 16:
-        raise ValueError(f"G={g}, hd={hd}: the kernel takes G <= 8 and "
+    groups * query chunks)`` splits.  Raises for shapes the kernel does not
+    take."""
+    if g < 1 or not 1 <= hd <= 256 or (hd * elt) % 16:
+        raise ValueError(f"G={g}, hd={hd}: the kernel takes G >= 1 and "
                          "hd <= 256 with 16-byte rows per head")
+    if MAX_G_PER_CTA not in (1, 2, 4, 8):
+        raise ValueError(f"MAX_G_PER_CTA={MAX_G_PER_CTA}: a power of two "
+                         "up to 8")
     heads = max(d for d in range(1, min(hkv, MAX_HEADS_PER_CTA) + 1)
                 if hkv % d == 0)
     groups = hkv // heads
@@ -163,8 +175,10 @@ def plan_split(b: int, hkv: int, g: int, hd: int, bs: int, max_blocks: int,
     lpr = min(32, _pow2_at_least(vectors))
     nv = -(-vectors // lpr)
     stage_rows = ROWS_PER_GROUP * 32 // lpr
+    gm = min(_pow2_at_least(g), MAX_G_PER_CTA)
+    q_chunks = -(-g // gm)
     cap = max_blocks * bs
-    want = -(-2 * sms // (b * groups))
+    want = -(-2 * sms // (b * groups * q_chunks))
     split_rows = max(-(-cap // want), MIN_SPLIT_ROWS)
     split_rows = -(-split_rows // stage_rows) * stage_rows
     n_splits = -(-cap // split_rows)
@@ -172,7 +186,7 @@ def plan_split(b: int, hkv: int, g: int, hd: int, bs: int, max_blocks: int,
     smem = STAGES * 2 * stage_rows * row_bytes + 8 * split_rows
     return SplitPlan(heads=heads, head_groups=groups, stage_rows=stage_rows,
                      split_rows=split_rows, n_splits=n_splits, lpr=lpr,
-                     nv=nv, gm=_pow2_at_least(g), scratch_floats=scratch,
+                     nv=nv, gm=gm, q_chunks=q_chunks, scratch_floats=scratch,
                      smem_bytes=smem)
 
 
@@ -190,12 +204,13 @@ def _check(t: torch.Tensor, name: str, shape, dtype, device):
 
 def paged_attention_cuda(q, k_new, v_new, pk, pv, bt, pos_b, active, *,
                          scale: float, softcap: Optional[float] = None):
-    """Launch the CUDA paged-attention kernel: one CTA per (head group, slot,
-    split of logical rows), planned by :func:`plan_split`, and a combine
-    pass over the slots whose rows span several splits.  ``q`` is f32 ``(B, Hkv, G, hd)``;
+    """Launch the CUDA paged-attention kernel: one CTA per (head group and
+    query chunk, slot, split of logical rows), planned by
+    :func:`plan_split`, and a combine pass over the slots whose rows span
+    several splits.  ``q`` is f32 ``(B, Hkv, G, hd)``;
     ``k_new``/``v_new`` are in the pool dtype; ``bt``/``pos_b``/``active``
-    are int32.  Updates the pools in place and returns ``(ctx f32, pk,
-    pv)``."""
+    are int32.  Updates the pools in place and returns
+    ``(ctx f32, pk, pv)``."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"paged_attention_cuda needs CUDA tensors, got {dev}")
@@ -233,10 +248,22 @@ def paged_attention_cuda(q, k_new, v_new, pk, pv, bt, pos_b, active, *,
     if err != 0:
         raise build.launch_failed("paged_attention", err)
     paged_attention_cuda.launches += 1
+    key = layout_key(hkv, g, hd, pk.dtype)
+    paged_attention_cuda.layouts[key] = (
+        paged_attention_cuda.layouts.get(key, 0) + 1)
     return ctx, pk, pv
 
 
+def layout_key(hkv: int, g: int, hd: int, dtype) -> str:
+    """The name of a kernel layout in the launch counts, e.g.
+    ``"hkv1_g48_hd128_bf16"``."""
+    name = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+    return f"hkv{hkv}_g{g}_hd{hd}_{name}"
+
+
 paged_attention_cuda.launches = 0
+# launches by layout (``layout_key``), counted where ``launches`` is
+paged_attention_cuda.layouts = {}
 
 
 def paged_attention_decode(q, k_new, v_new, pk, pv, bt, pos_b, active=None,

@@ -18,6 +18,7 @@ which is how per-layer seeds are derived on the host.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -71,8 +72,29 @@ def uniform_from_bits(bits, open_zero: bool = False):
     return u * (2.0**-24)
 
 
+@functools.cache
+def _vml_ready() -> None:
+    """Run torch's CPU log, sqrt and cos once on one element, on the calling
+    thread, before any call splits them across threads.
+
+    On an x86 build with MKL, these ops call MKL's vector math (``vmsLn``,
+    ``vmsSqrt``, ``vmsCos``) in its high-accuracy mode.  Under a loaded
+    CPU, a process's first such call, split over several OpenMP threads,
+    has been seen to compute one thread's chunk with MKL's AVX2
+    enhanced-performance log instead (r off by up to 737 ulp), while every
+    later call repeated exactly: MKL sets itself up on first use, and
+    concurrent first uses race.  A call below torch's parallel grain runs
+    on this thread alone and does that set-up first
+    (``tests/counter_normal_stress.py`` counts both cases)."""
+    one = torch.ones(1)
+    for op in (torch.log, torch.sqrt, torch.cos):
+        op(one)
+
+
 def normal_from_bits(bits_a, bits_b):
     """Two independent uint32 bit arrays -> standard-normal f32 (Box-Muller)."""
+    if bits_a.device.type == "cpu":
+        _vml_ready()
     u1 = uniform_from_bits(bits_a, open_zero=True)
     u2 = uniform_from_bits(bits_b)
     r = torch.sqrt(-2.0 * torch.log(u1))

@@ -12,7 +12,10 @@ Engine design (the PyTorch counterpart of ``repro.launch.serve.Engine``):
                        a per-slot block table (slots, max_blocks) on the
                        device.  The host-side ``BlockAllocator`` hands out
                        blocks; physical block 0 is the garbage block that
-                       inactive and overrun rows write to.
+                       inactive and overrun rows write to.  Sliding-window
+                       rings (bounded at the window span) stay contiguous
+                       per slot, are written whole at admission and count
+                       as fixed KV bytes (``kv_pool_bytes``).
   batched prefill      the FIFO prefix of pending requests sharing one
                        power-of-two bucket is admitted as ONE (R, bucket)
                        prefill (R padded to a power of two), then ONE insert
@@ -63,7 +66,9 @@ Engine design (the PyTorch counterpart of ``repro.launch.serve.Engine``):
                        between chunks (``swap_calibration``).
   failure isolation    a transient device error (``runtime.fault``) on a
                        prefill group, a warm prefill or a decode chunk is
-                       retried once with the same call on the same device.
+                       retried once with the same call on the same device
+                       (a decode chunk first puts back the ring rows it
+                       overwrote).
                        If it persists, a batched group re-admits each member
                        alone (a poison row fails alone), a warm admission
                        fails its request, and a decode chunk fails only the
@@ -94,6 +99,7 @@ from repro_torch.models import (
     decode_step,
     init_paged_cache,
     init_params,
+    param_bytes,
     prefill,
     resolve_device,
 )
@@ -292,9 +298,6 @@ class Engine:
                  failure_injector: Optional[Callable[[str, Any], None]] = None,
                  drift_pause_depth: Optional[int] = None,
                  prefix_cache: bool = False):
-        if any(k != "attn" for k in tuple(cfg.pattern) + tuple(cfg.tail_kinds)):
-            raise NotImplementedError(
-                f"pattern {cfg.pattern} is not ported yet (ROADMAP)")
         if alloc_policy not in ("lazy", "reserve"):
             raise ValueError(f"unknown alloc_policy {alloc_policy!r}")
         self.cfg = cfg
@@ -330,8 +333,14 @@ class Engine:
             kv_blocks = batch_slots * self.max_blocks + 1
         self.alloc = BlockAllocator(kv_blocks)
         self.alloc_policy = alloc_policy
-        # every per-request KV byte lives in the paged pool (attention-only
-        # patterns), so linking blocks reconstructs a cached prefix exactly
+        # prefix sharing is sound only when EVERY per-request KV byte lives
+        # in the paged pool, so that linking blocks reconstructs a cached
+        # prefix exactly: a sliding-window ring cannot be, so such patterns
+        # serve cold
+        if prefix_cache and any(k != "attn" for k in cfg.pattern):
+            log.info("prefix cache disabled: pattern %s carries non-paged "
+                     "per-request state", cfg.pattern)
+            prefix_cache = False
         self.prefix: Optional[PrefixCache] = (
             PrefixCache(block_size) if prefix_cache else None)
         # prefix-sharing counters (a miss is a cold admission with the cache
@@ -355,6 +364,7 @@ class Engine:
                                  block_size, device=self.device)
         cache.pop("pos")
         self.cache = cache
+        self._block_bytes, self._fixed_kv_bytes = self._kv_accounting()
         self.pos = torch.zeros((batch_slots,), dtype=torch.int64,
                                device=self.device)
         self.last_token = torch.zeros((batch_slots,), dtype=torch.int64,
@@ -378,7 +388,27 @@ class Engine:
     # -- bookkeeping ----------------------------------------------------------
     def _paged_layers(self):
         """The stacked {"pk","pv","bt"} dict of every paged pattern position."""
-        return list(self.cache["blocks"].values())
+        return [c for c in self.cache["blocks"].values() if "pk" in c]
+
+    def _kv_accounting(self) -> Tuple[int, int]:
+        """(bytes per physical block summed over the paged layers, bytes of
+        the always-allocated contiguous KV leaves: sliding-window rings)."""
+        block_bytes = fixed = 0
+        for c in self.cache["blocks"].values():
+            if "pk" in c:
+                for leaf in (c["pk"], c["pv"]):  # (L, NB, bs, Hkv, hd)
+                    block_bytes += (leaf.numel() // leaf.shape[1]
+                                    * leaf.element_size())
+            else:
+                for leaf in (c["k"], c["v"]):
+                    fixed += leaf.numel() * leaf.element_size()
+        return block_bytes, fixed
+
+    def kv_pool_bytes(self) -> int:
+        """Bytes of the whole KV cache: every physical block plus the
+        rings."""
+        return (self._fixed_kv_bytes
+                + self.alloc.num_blocks * self._block_bytes)
 
     def live_tokens(self) -> int:
         """Tokens currently resident in active slots' caches."""
@@ -625,7 +655,10 @@ class Engine:
         """Write a prefill group into the engine cache: each row's prompt K/V
         into its allocated blocks (logical block j -> bt_rows[r, j]; blocks
         past the allocation go to garbage block 0), its block-table row into
-        every layer's table, and its first token and position."""
+        every paged layer's table, each local layer's ring into its slot
+        (right-padded: a prefill ring narrower than the engine's span has the
+        identity layout, bucket < window), and its first token and
+        position."""
         bs = self.block
         dev = self.device
         slots = torch.as_tensor(slot_ids, dtype=torch.int64, device=dev)
@@ -633,6 +666,13 @@ class Engine:
         r = len(slot_ids)
         for key, eng in self.cache["blocks"].items():
             pref = cache1["blocks"][key]
+            if "pk" not in eng:
+                for kv_key in ("k", "v"):
+                    ring, src = eng[kv_key], pref[kv_key][:, :r]
+                    pad = ring.shape[2] - src.shape[2]
+                    ring[:, slots] = torch.nn.functional.pad(
+                        src, (0, 0, 0, 0, 0, pad)).to(ring.dtype)
+                continue
             eng["bt"][:, slots] = rows
             for pool_key, kv_key in (("pk", "k"), ("pv", "v")):
                 pool, src = eng[pool_key], pref[kv_key][:, :r]
@@ -1020,15 +1060,40 @@ class Engine:
         self.last_token, self.pos = tok, pos
         return torch.stack(toks, dim=1).to(torch.int32)
 
+    def _save_rings(self, n_steps: int):
+        """Copies of the ring rows (local layers) a chunk of ``n_steps``
+        overwrites: rows ``(pos + t) % span`` of every slot, t < n_steps.
+        A wrapped ring holds in-window keys there, which a chunk that fails
+        part way has replaced by later positions' keys; paged pools need
+        nothing, since decode masks their rows past ``pos``."""
+        saved = []
+        steps = torch.arange(n_steps, device=self.device)
+        rows = torch.arange(self.batch_slots, device=self.device)[:, None]
+        for c in self.cache["blocks"].values():
+            if "pk" in c:
+                continue
+            idx = torch.remainder(self.pos[:, None] + steps, c["k"].shape[2])
+            # (L, slots, n_steps, Hkv, hd) copies
+            saved.append((c, idx, c["k"][:, rows, idx], c["v"][:, rows, idx]))
+        return rows, saved
+
+    @staticmethod
+    def _restore_rings(rings):
+        rows, saved = rings
+        for c, idx, k, v in saved:
+            c["k"][:, rows, idx] = k
+            c["v"][:, rows, idx] = v
+
     def decode_chunk(self, n_steps: Optional[int] = None) -> np.ndarray:
         """Run ``n_steps`` decode steps; returns the (slots, T) token block,
         the chunk's single device-to-host transfer.
 
         A transient device error is retried once: the engine's tokens and
-        positions change only when a chunk returns, and a re-run rewrites
-        the same K/V positions with the same values, so the retry is exact.
-        If the error persists, only the requests in flight retire with an
-        error status and the engine goes on."""
+        positions change only when a chunk returns, a re-run rewrites the
+        same paged K/V positions with the same values, and the ring rows
+        the failed run overwrote are put back first (``_save_rings``), so
+        the retry is exact.  If the error persists, only the requests in
+        flight retire with an error status and the engine goes on."""
         if n_steps is None:
             n_steps = self.next_chunk()
         if n_steps <= 0:
@@ -1041,12 +1106,18 @@ class Engine:
         active = torch.as_tensor([s is not None for s in self.slots],
                                  device=self.device)
         key = self._next_key()
+        rings = self._save_rings(n_steps)
 
         def run_chunk():
             if self.failure_injector is not None:
                 self.failure_injector("decode", self.decode_calls)
-            with self._shadow(shadow):
-                return self._run_chunk(n_steps, active, key)
+            try:
+                with self._shadow(shadow):
+                    return self._run_chunk(n_steps, active, key)
+            except Exception as e:
+                if fault_lib.is_transient_device_error(e):
+                    self._restore_rings(rings)
+                raise
 
         try:
             block = fault_lib.call_with_retries(
@@ -1327,8 +1398,11 @@ def main(argv=None) -> dict:
     """Serve a seeded synthetic workload; returns a report with the finished
     requests, the engine, the host-clock throughput and TTFT, and (where
     asked for) the SLO summary (``"slo"``), the meter and its
-    ``EnergyReport``s (``"energy"``), the drift monitor (``"monitor"``) and
-    its per-site SNR_T rows (``"snr_rows"``)."""
+    ``EnergyReport``s (``"energy"``), the drift monitor (``"monitor"``),
+    its per-site SNR_T rows (``"snr_rows"``), the parameters' bytes
+    (``"weight_bytes"``) and, on the card, the peak device memory of the
+    initialization above what was allocated before it
+    (``"init_peak_bytes"``)."""
     ap = build_parser()
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
@@ -1360,7 +1434,18 @@ def main(argv=None) -> dict:
         rng = prng.derive_seed(args.seed, 7)
     lens = ([int(x) for x in args.prompt_lens.split(",")] if args.prompt_lens
             else [args.prompt_len])
+    if device.type == "cuda":
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
     params = init_params(cfg, seed=args.seed, device=device)
+    weight_bytes = param_bytes(params)
+    # the peak above what was allocated before: the weights plus init's
+    # transients
+    init_peak = (torch.cuda.max_memory_allocated(device) - base
+                 if device.type == "cuda" else None)
+    if init_peak is not None:
+        log.info("initialized %s: %d weight bytes, peak device memory %d "
+                 "bytes", cfg.name, weight_bytes, init_peak)
     if args.imc_mode and args.imc_policy == "frozen":
         # frozen ranges from a seeded reference batch; the engine-wide noise
         # seed goes too (its draws are shaped by the batch)
@@ -1460,6 +1545,8 @@ def main(argv=None) -> dict:
         "energy": [],
         "monitor": monitor,
         "snr_rows": None,
+        "weight_bytes": weight_bytes,
+        "init_peak_bytes": init_peak,
     }
     log.info(
         "served %d requests on %s, %d tokens, %d decode chunks (%d steps), "

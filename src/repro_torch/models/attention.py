@@ -1,15 +1,16 @@
 """GQA/MQA/MHA attention: blocked causal prefill attention (the online-softmax
-math of the reference's ``_flash_fwd_impl``, in plain PyTorch ops) and
-single-token decode over a paged KV block pool.
+math of the reference's ``_flash_fwd_impl``, in plain PyTorch ops), the exact
+banded path for sliding windows, and single-token decode against either a
+contiguous cache (a ring buffer for sliding windows) or a paged KV block pool
+(global attention only, as in the reference).
 
 Paged decode takes the paged-attention kernel by default
 (``AttnDims.paged_kernel``, from ``cfg.decode_attn="kernel"``: CUDA on the
 card, its plain walk on the CPU) or the gather escape hatch
 (``decode_attn="gather"``) that materializes ``pool[bt]`` and runs a full-row
 softmax.  Both follow the garbage-block-0 write routing.  The pools are
-updated IN PLACE (a per-step copy of a multi-GB pool would dominate decode).
-Sliding windows, the contiguous decode cache and the flash backward wait for
-later slices.
+updated IN PLACE (a per-step copy of a multi-GB pool would dominate decode);
+so are the contiguous caches.  The flash backward waits for a later slice.
 """
 from __future__ import annotations
 
@@ -82,11 +83,10 @@ def flash_attention(q, k, v, dims: AttnDims):
 
     q: (B, S, Hq, hd); k, v: (B, S, Hkv, hd).  Returns (B, S, Hq, hd).  KV
     blocks wholly in a q block's future are skipped: they would add p = 0
-    and a correction of 1, so the result is unchanged.
+    and a correction of 1, so the result is unchanged.  ``dims.window``
+    masks keys ``window`` or more positions back (the reference's
+    ``_block_mask``).
     """
-    if dims.window is not None:
-        raise NotImplementedError("sliding-window attention is not ported "
-                                  "yet (ROADMAP)")
     b, s_q, hq, hd = q.shape
     s_kv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -112,6 +112,8 @@ def flash_attention(q, k, v, dims: AttnDims):
             s = _scores(q_blk, k[:, k0:k1], dims)
             k_pos = torch.arange(k0, k1, device=dev)
             mask = q_pos[:, None] >= k_pos[None, :]
+            if dims.window is not None:
+                mask = mask & (q_pos[:, None] - k_pos[None, :] < dims.window)
             s = torch.where(mask, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
@@ -126,9 +128,68 @@ def flash_attention(q, k, v, dims: AttnDims):
     return out.reshape(b, s_q, hq, hd)
 
 
+def banded_attention(q, k, v, dims: AttnDims):
+    """Exact sliding-window attention with O(S * W) compute: each q block
+    reads only the [q0 - W, q0 + QB) slice of K/V (front-padded by W) and
+    takes a full-row softmax over it.  q: (B, S, Hq, hd); k, v: (B, S, Hkv,
+    hd).  Returns (B, S, Hq, hd)."""
+    b, s, hq, hd = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    w = dims.window
+    qb = min(dims.q_block, s)
+    n_q = -(-s // qb)
+    pad_q = n_q * qb - s
+    dev = q.device
+    q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad_q))
+    # front-pad K/V by W so every block's slice is in range
+    k_p = torch.nn.functional.pad(k, (0, 0, 0, 0, w, pad_q))
+    v_p = torch.nn.functional.pad(v, (0, 0, 0, 0, w, pad_q))
+    span = w + qb
+    qg = q.reshape(b, n_q, qb, hkv, g, hd)
+    out = torch.empty((b, n_q * qb, hkv, g, hd), dtype=torch.float32,
+                      device=dev)
+    for iq in range(n_q):
+        start = iq * qb  # q0 - W in front-padded coordinates
+        k_blk = k_p[:, start:start + span]
+        v_blk = v_p[:, start:start + span]
+        sc = _scores(qg[:, iq], k_blk, dims)  # (B, Hkv, G, QB, span)
+        q_pos = iq * qb + torch.arange(qb, device=dev)
+        k_pos = iq * qb - w + torch.arange(span, device=dev)  # < 0: pad
+        mask = ((q_pos[:, None] >= k_pos[None, :])
+                & (q_pos[:, None] - k_pos[None, :] < w)
+                & (k_pos >= 0)[None, :] & (k_pos < s)[None, :])
+        sc = torch.where(mask, sc, NEG_INF)
+        p = torch.softmax(sc, dim=-1)
+        o = torch.einsum("bhgqk,bkhd->bhgqd", p, v_blk.to(torch.float32))
+        out[:, start:start + qb] = o.permute(0, 3, 1, 2, 4)
+    return out.reshape(b, n_q * qb, hq, hd)[:, :s].to(q.dtype)
+
+
+def prefill_attention(q, k, v, dims: AttnDims):
+    """The full-sequence dispatch of the reference's ``attention_forward``:
+    banded when the window is shorter than the sequence, otherwise flash
+    with the window dropped (it would cover every causal pair)."""
+    if dims.window is not None and dims.window < q.shape[1]:
+        return banded_attention(q, k, v, dims)
+    return flash_attention(q, k, v, dims._replace(window=None))
+
+
 # ---------------------------------------------------------------------------
-# paged decode (one new token against the block pool)
+# decode (one new token against a cache)
 # ---------------------------------------------------------------------------
+
+
+def init_kv_cache(batch: int, cache_len: int, n_kv: int, head_dim: int,
+                  dtype, device):
+    """Contiguous decode cache ``{"k","v"}`` (B, cache_len, Hkv, hd): a ring
+    buffer for sliding windows, a plain append cache for global attention."""
+    shape = (batch, cache_len, n_kv, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# paged decode: one new token against the block pool
 
 
 def init_paged_kv_cache(batch: int, num_blocks: int, block_size: int,
@@ -147,58 +208,94 @@ def init_paged_kv_cache(batch: int, num_blocks: int, block_size: int,
     }
 
 
-def _gather_attend(q, pk, pv, bt, pos_b, dims: AttnDims):
-    """Full-row softmax over the gathered ``pool[bt]`` view (escape hatch)."""
-    b, max_blocks = bt.shape
-    bs = pk.shape[1]
+def _attend(q, k, v, valid, dims: AttnDims):
+    """Single-token attention over a (B, Skv, Hkv, hd) K/V view with a
+    (B, Skv) validity mask, as a full-row softmax; shared by the contiguous
+    caches and the paged gather path.  Returns ctx (B, Hkv, G, hd) f32."""
+    b = q.shape[0]
     hq, hkv, hd = dims.n_heads, dims.n_kv, dims.head_dim
-    s_kv = max_blocks * bs
-    bt_l = bt.to(torch.int64)
-    k = pk[bt_l].reshape(b, s_kv, hkv, hd)
-    v = pv[bt_l].reshape(b, s_kv, hkv, hd)
     qg = q.reshape(b, hkv, hq // hkv, hd)
     s = torch.einsum("bhgd,bkhd->bhgk", qg.to(torch.float32),
                      k.to(torch.float32)) * dims.scale
     if dims.softcap_val is not None:
         s = dims.softcap_val * torch.tanh(s / dims.softcap_val)
-    valid = torch.arange(s_kv, device=q.device)[None, :] <= pos_b[:, None]
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhgk,bkhd->bhgd", p, v.to(torch.float32))
 
 
+def _decode_paged(q, k_new, v_new, cache, pos_b, dims: AttnDims, active):
+    """Paged decode: the kernel (scatter + block walk in one launch) or the
+    gather escape hatch (scatter, then a full-row softmax over
+    ``pool[bt]``).  Paged caches are global-attention only, as in the
+    reference."""
+    if dims.window is not None:
+        raise ValueError("paged KV caches are global-attention only")
+    pk, pv, bt = cache["pk"], cache["pv"], cache["bt"]
+    b = q.shape[0]
+    hq, hkv, hd = dims.n_heads, dims.n_kv, dims.head_dim
+    if dims.paged_kernel:
+        ctx, _, _ = paged_attention_decode(
+            q.reshape(b, hkv, hq // hkv, hd), k_new[:, 0], v_new[:, 0], pk,
+            pv, bt, pos_b, active, scale=dims.scale,
+            softcap=dims.softcap_val)
+        return ctx
+    dest, off = write_routing(bt, pos_b, pk.shape[1], active)
+    pk[dest, off] = k_new[:, 0].to(pk.dtype)
+    pv[dest, off] = v_new[:, 0].to(pv.dtype)
+    max_blocks, bs = bt.shape[1], pk.shape[1]
+    s_kv = max_blocks * bs
+    bt_l = bt.to(torch.int64)
+    k = pk[bt_l].reshape(b, s_kv, hkv, hd)
+    v = pv[bt_l].reshape(b, s_kv, hkv, hd)
+    valid = torch.arange(s_kv, device=q.device)[None, :] <= pos_b[:, None]
+    return _attend(q, k, v, valid, dims)
+
+
+def _decode_contiguous(q, k_new, v_new, cache, pos_b, dims: AttnDims):
+    """Contiguous decode: a ring buffer (slot ``pos % span``) for sliding
+    windows, a plain append (clamped at the last slot) for global
+    attention.  Every row writes its own slot (``active`` is a paged-pool
+    notion: a retired slot's ring is rewritten whole at its next
+    admission).  Once a ring has wrapped, every slot holds an in-window
+    key."""
+    k_c, v_c = cache["k"], cache["v"]
+    b, s_kv = k_c.shape[:2]
+    if dims.window is not None:
+        slot = torch.remainder(pos_b, s_kv)
+    else:
+        slot = torch.clamp(pos_b, max=s_kv - 1)
+    rows = torch.arange(b, device=q.device)
+    k_c[rows, slot] = k_new[:, 0].to(k_c.dtype)
+    v_c[rows, slot] = v_new[:, 0].to(v_c.dtype)
+    idx = torch.arange(s_kv, device=q.device)
+    valid = idx[None, :] <= pos_b[:, None]
+    if dims.window is not None:
+        valid = valid | (pos_b + 1 >= s_kv)[:, None]
+    return _attend(q, k_c, v_c, valid, dims)
+
+
 def attention_decode(params, x, cache, pos, dims: AttnDims,
                      imc: IMCConfig = DIGITAL, rng=None, active=None,
                      site_prefix: str = "attn"):
-    """One token per slot against a paged ``{"pk","pv","bt"}`` cache.
+    """One token per slot against a cache: a paged ``{"pk","pv","bt"}``
+    pool (global attention) or a contiguous ``{"k","v"}`` cache (a ring
+    buffer when ``dims.window`` is set).
 
     ``x`` (B, 1, d); ``pos`` a scalar or (B,) tokens already cached per
-    slot; ``active`` (B,) bool rows allowed to write (others write to the
-    garbage block).  Returns ``(y (B, 1, d), cache)``; the pools in ``cache``
-    are updated in place.
+    slot; ``active`` (B,) bool rows allowed to write to the pool (others
+    write to the garbage block).  Returns ``(y (B, 1, d), cache)``; the
+    cache is updated in place.
     """
-    if "pk" not in cache:
-        raise NotImplementedError("only the paged KV cache is ported; the "
-                                  "contiguous decode cache waits (ROADMAP)")
-    if dims.window is not None:
-        raise NotImplementedError("paged KV caches are global-attention only")
     b = x.shape[0]
     pos_b = torch.as_tensor(pos, dtype=torch.int64, device=x.device)
     pos_b = pos_b.expand(b) if pos_b.dim() == 0 else pos_b
     q, k_new, v_new = _project_qkv(params, x, dims, pos_b[:, None], imc, rng,
                                    site_prefix)
-    pk, pv, bt = cache["pk"], cache["pv"], cache["bt"]
-    hq, hkv, hd = dims.n_heads, dims.n_kv, dims.head_dim
-    if dims.paged_kernel:
-        qg = q.reshape(b, hkv, hq // hkv, hd)
-        ctx, _, _ = paged_attention_decode(
-            qg, k_new[:, 0], v_new[:, 0], pk, pv, bt, pos_b, active,
-            scale=dims.scale, softcap=dims.softcap_val)
+    if "pk" in cache:
+        ctx = _decode_paged(q, k_new, v_new, cache, pos_b, dims, active)
     else:
-        dest, off = write_routing(bt, pos_b, pk.shape[1], active)
-        pk[dest, off] = k_new[:, 0].to(pk.dtype)
-        pv[dest, off] = v_new[:, 0].to(pv.dtype)
-        ctx = _gather_attend(q, pk, pv, bt, pos_b, dims)
-    ctx = ctx.reshape(b, 1, hq * hd).to(x.dtype)
+        ctx = _decode_contiguous(q, k_new, v_new, cache, pos_b, dims)
+    ctx = ctx.reshape(b, 1, dims.n_heads * dims.head_dim).to(x.dtype)
     y = linear(params["wo"], ctx, imc, rng, site=f"{site_prefix}.wo")
     return y, cache

@@ -48,12 +48,17 @@ def layer_params(stacked, li: int):
 
 
 def _check_arch(cfg: ArchConfig):
-    if cfg.tail_kinds or any(k != "attn" for k in cfg.pattern):
+    """Refuse what the port does not serve yet: VLM prefixes and the
+    recurrent (SSM, RG-LRU) and MoE kinds.  Remainder layers occur only in
+    recurrent patterns."""
+    for kind in cfg.pattern:
+        tf.check_kind(cfg, kind)
+    if cfg.tail_kinds:
         raise NotImplementedError(
-            f"pattern {cfg.pattern} is not ported yet (ROADMAP)")
-    if cfg.modality == "vlm" or cfg.pos_kind == "learned":
-        raise NotImplementedError("vlm prefixes and learned positions are "
-                                  "not ported yet (ROADMAP)")
+            f"pattern {cfg.pattern} leaves remainder layers "
+            f"{cfg.tail_kinds}: not ported yet (ROADMAP)")
+    if cfg.modality == "vlm":
+        raise NotImplementedError("vlm prefixes are not ported yet (ROADMAP)")
 
 
 # ---------------------------------------------------------------------------
@@ -64,7 +69,11 @@ def _check_arch(cfg: ArchConfig):
 def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> Dict[str, Any]:
     """Random parameters from a ``torch.Generator`` seeded with ``seed``, in
     the reference's layout and scales (not its values: JAX's streams are not
-    reproducible in PyTorch; use ``convert.params_from_jax`` for those)."""
+    reproducible in PyTorch; use ``convert.params_from_jax`` for those).
+
+    Each stacked block leaf is allocated once and filled layer by layer, in
+    the draw order of stacking a list of layers, so the peak memory is the
+    weights plus one layer's draws, not twice the weights."""
     _check_arch(cfg)
     device = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
@@ -78,27 +87,49 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> Dict[str, Any]:
         params["lm_head"] = (torch.randn(
             (cfg.d_model, cfg.padded_vocab), generator=gen, device=device)
             * 0.02).to(dtype)
+    if cfg.pos_kind == "learned":
+        params["pos_table"] = (torch.randn(
+            (cfg.max_seq, cfg.d_model), generator=gen, device=device)
+            * 0.02).to(dtype)
+    n_full = cfg.n_full_cycles
     blocks = {}
     for pi, kind in enumerate(cfg.pattern):
-        layers = [tf.init_block(gen, cfg, kind, dtype, device)
-                  for _ in range(cfg.n_full_cycles)]
-        blocks[f"p{pi}"] = _stack(layers)
+        stacked = None
+        for li in range(n_full):
+            layer = tf.init_block(gen, cfg, kind, dtype, device)
+            if stacked is None:
+                stacked = tree_map(lambda t: torch.empty(
+                    (n_full,) + tuple(t.shape), dtype=t.dtype,
+                    device=t.device), layer)
+            _fill(stacked, layer, li)
+            del layer  # freed before the next layer's draws
+        blocks[f"p{pi}"] = stacked
     params["blocks"] = blocks
     return params
 
 
-def _stack(layers):
-    first = layers[0]
-    if isinstance(first, dict):
-        return {k: _stack([lay[k] for lay in layers]) for k in first}
-    return torch.stack(layers)
+def _fill(stacked, layer, li: int):
+    """Copy one layer's leaves into row ``li`` of the stacked leaves."""
+    for k, v in layer.items():
+        if isinstance(v, dict):
+            _fill(stacked[k], v, li)
+        else:
+            stacked[k][li].copy_(v)
+
+
+def param_bytes(params) -> int:
+    """Bytes of every leaf of a parameter tree."""
+    if isinstance(params, dict):
+        return sum(param_bytes(v) for v in params.values())
+    return params.numel() * params.element_size()
 
 
 def init_paged_cache(cfg: ArchConfig, batch: int, cache_len: int,
                      num_blocks: int, block_size: int, device=None):
-    """Paged decode cache: per pattern position, pools stacked over layers
-    ``(L, num_blocks, block_size, Hkv, hd)`` and block tables
-    ``(L, batch, max_blocks)`` (identical contents across layers)."""
+    """Paged decode cache, per pattern position stacked over layers: global
+    blocks get pools ``(L, num_blocks, block_size, Hkv, hd)`` and block
+    tables ``(L, batch, max_blocks)`` (identical contents across layers);
+    local blocks keep contiguous rings ``(L, batch, span, Hkv, hd)``."""
     _check_arch(cfg)
     device = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
@@ -109,8 +140,10 @@ def init_paged_cache(cfg: ArchConfig, batch: int, cache_len: int,
     for pi, kind in enumerate(cfg.pattern):
         one = tf.init_block_cache_paged(cfg, kind, batch, cache_len, dtype,
                                         num_blocks, block_size, device)
+        # every leaf starts at zero: allocate the stacked leaves directly
         cache["blocks"][f"p{pi}"] = tree_map(
-            lambda t: t[None].repeat((n_full,) + (1,) * t.dim()), one)
+            lambda t: torch.zeros((n_full,) + tuple(t.shape), dtype=t.dtype,
+                                  device=t.device), one)
     return cache
 
 
@@ -123,7 +156,9 @@ def _embed_inputs(params, cfg: ArchConfig, tokens, positions):
     x = params["embed"][tokens]  # (B, S, d)
     if cfg.emb_scale:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype)
-    if cfg.pos_kind == "sinusoidal":
+    if cfg.pos_kind == "learned":
+        x = x + params["pos_table"][positions]
+    elif cfg.pos_kind == "sinusoidal":
         x = x + sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
     return x
 
@@ -147,21 +182,25 @@ def _head(params, cfg: ArchConfig, x):
 
 
 def _run_full(params, cfg: ArchConfig, x, positions, rng, want_cache: bool,
-              cache_len: int):
-    caches = {}
-    for pi, kind in enumerate(cfg.pattern):
-        stacked = params["blocks"][f"p{pi}"]
-        ks, vs = [], []
-        for li in range(cfg.n_full_cycles):
+              cache_len: int, true_len=None):
+    """Every layer in the reference's order: cycle ``li`` runs pattern
+    positions 0, 1, ... (gemma2: local 0, global 0, local 1, ...)."""
+    ks = {f"p{pi}": [] for pi in range(len(cfg.pattern))}
+    vs = {f"p{pi}": [] for pi in range(len(cfg.pattern))}
+    for li in range(cfg.n_full_cycles):
+        for pi, kind in enumerate(cfg.pattern):
             r = layer_rng(layer_rng(rng, pi), li)
-            x, c = tf.apply_block_full(layer_params(stacked, li), x, cfg,
-                                       kind, positions, r, want_cache,
-                                       cache_len)
+            x, c = tf.apply_block_full(
+                layer_params(params["blocks"][f"p{pi}"], li), x, cfg, kind,
+                positions, r, want_cache, cache_len, true_len=true_len)
             if want_cache:
-                ks.append(c["k"])
-                vs.append(c["v"])
-        if want_cache:
-            caches[f"p{pi}"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
+                ks[f"p{pi}"].append(c["k"])
+                vs[f"p{pi}"].append(c["v"])
+    caches = {}
+    if want_cache:
+        for key in ks:
+            caches[key] = {"k": torch.stack(ks[key]),
+                           "v": torch.stack(vs[key])}
     return x, caches
 
 
@@ -179,14 +218,17 @@ def prefill(params, cfg: ArchConfig, tokens, cache_len: int,
             rng: Optional[int] = None, true_len=None):
     """Process a prompt batch; returns (last-position logits (B, 1, V),
     cache).  With ``true_len`` (B,) the prompts are right-padded to S: logits
-    are taken at each row's true last position and ``cache["pos"]`` is
-    ``true_len``.  The cache holds each layer's K/V in the linear layout
-    ``(L, B, cache_len, Hkv, hd)``."""
+    are taken at each row's true last position, ``cache["pos"]`` is
+    ``true_len`` and each local layer's ring is packed from its row's true
+    tail.  The cache holds each global layer's K/V in the linear layout
+    ``(L, B, cache_len, Hkv, hd)`` and each local layer's ring ``(L, B,
+    min(window, cache_len), Hkv, hd)``; ``decode_step`` takes it as is."""
     _check_arch(cfg)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     x = _embed_inputs(params, cfg, tokens, positions)
-    x, caches = _run_full(params, cfg, x, positions, rng, True, cache_len)
+    x, caches = _run_full(params, cfg, x, positions, rng, True, cache_len,
+                          true_len=true_len)
     if true_len is None:
         x_last = x[:, -1:]
         pos = torch.tensor(s, dtype=torch.int64, device=tokens.device)
@@ -204,22 +246,22 @@ def prefill(params, cfg: ArchConfig, tokens, cache_len: int,
 
 def decode_step(params, cfg: ArchConfig, token, cache,
                 rng: Optional[int] = None, active=None):
-    """One decode step against the paged cache.  ``token`` (B,) is each
-    slot's latest token, ``cache["pos"]`` a scalar or (B,) positions, and
-    ``active`` (B,) bool the rows allowed to write K/V (inactive rows write to
-    the garbage block).  Returns (logits (B, 1, V), cache with pos + 1); the
-    pools are updated in place."""
+    """One decode step against the engine's paged cache or the contiguous
+    cache ``prefill`` returns.  ``token`` (B,) is each slot's latest token,
+    ``cache["pos"]`` a scalar or (B,) positions, and ``active`` (B,) bool
+    the rows allowed to write to the paged pools (inactive rows write to the
+    garbage block).  Returns (logits (B, 1, V), cache with pos + 1); the
+    caches are updated in place."""
     b = token.shape[0]
     pos = cache["pos"]
     pos_b = torch.as_tensor(pos, device=token.device).to(torch.int64)
     pos_b = pos_b.expand(b) if pos_b.dim() == 0 else pos_b
     x = _embed_inputs(params, cfg, token[:, None], pos_b[:, None])
-    for pi, kind in enumerate(cfg.pattern):
-        stacked = params["blocks"][f"p{pi}"]
-        cstack = cache["blocks"][f"p{pi}"]
-        for li in range(cfg.n_full_cycles):
+    for li in range(cfg.n_full_cycles):
+        for pi, kind in enumerate(cfg.pattern):
             r = layer_rng(layer_rng(rng, pi), li)
-            x, _ = tf.apply_block_decode(layer_params(stacked, li), x, cfg,
-                                         kind, layer_params(cstack, li),
-                                         pos_b, r, active=active)
+            x, _ = tf.apply_block_decode(
+                layer_params(params["blocks"][f"p{pi}"], li), x, cfg, kind,
+                layer_params(cache["blocks"][f"p{pi}"], li), pos_b, r,
+                active=active)
     return _head(params, cfg, x), dict(cache, pos=pos + 1)

@@ -91,6 +91,57 @@ def test_paged_attention_long_context(dev):
     assert torch.equal(pk_k[1:], pk_p[1:])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hkv,g,hd,softcap", [
+    (32, 1, 96, None),    # phi3-mini-3.8b: 4 lanes of 16 hold no vector
+    (8, 7, 128, None),    # deepseek-coder-33b
+    (1, 48, 128, None),   # granite-20b: 24 query chunks of 2 rows
+    (8, 2, 256, 50.0),    # gemma2-9b
+])
+def test_paged_attention_architecture_layouts(dev, dtype, hkv, g, hd,
+                                              softcap):
+    """The dense architectures' layouts, one inactive row and one overrun
+    row, contexts over several splits: ctx within tolerance, pools bit-exact
+    outside block 0 (each slot's new row written once, by one query chunk),
+    one launch."""
+    q, kn, vn, pk, pv, bt, pos = _paged_state(
+        dev, dtype, b=4, mb=40, hkv=hkv, g=g, hd=hd, pos=(3, 130, 319, 320))
+    q = q * 4.0  # larger logits, so the softcap bites
+    active = torch.tensor([True, True, False, True], device=dev)
+    before = dict(pa.paged_attention_cuda.layouts)
+    ctx_k, pk_k, pv_k = pa.paged_attention_decode(
+        q, kn, vn, pk.clone(), pv.clone(), bt, pos, active, scale=hd**-0.5,
+        softcap=softcap)
+    ctx_p, pk_p, pv_p = pa.decode_plain(q, kn, vn, pk.clone(), pv.clone(), bt,
+                                        pos, active, scale=hd**-0.5,
+                                        softcap=softcap)
+    torch.cuda.synchronize()
+    key = pa.layout_key(hkv, g, hd, dtype)
+    assert pa.paged_attention_cuda.layouts[key] == before.get(key, 0) + 1
+    torch.testing.assert_close(ctx_k, ctx_p, rtol=1e-5, atol=1e-5)
+    assert torch.equal(pk_k[1:], pk_p[1:]) and torch.equal(pv_k[1:], pv_p[1:])
+
+
+def test_init_params_full_width_peak_memory(dev):
+    """phi3-mini-3.8b at full width: each stacked leaf is allocated once and
+    filled layer by layer, so the peak is under 1.1x the weight bytes."""
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.models import init_params, param_bytes
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = init_params(configs.get("phi3-mini-3.8b"), seed=0, device=dev)
+    weights = param_bytes(params)
+    peak = torch.cuda.max_memory_allocated() - base
+    assert weights > 7e9
+    assert peak < 1.1 * weights, (peak, weights)
+    del params
+
+
 def _codes(dev, b, k, m, bx, bw, x_signed, seed=1):
     rng = np.random.default_rng(seed)
     x = torch.tensor(rng.normal(size=(b, k)), dtype=torch.float32, device=dev)

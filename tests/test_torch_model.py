@@ -339,7 +339,7 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch):
 
 def test_unported_archs_raise():
     with pytest.raises(NotImplementedError, match="not ported"):
-        t_configs.get("gemma2-9b")
+        t_configs.get("mamba2-2.7b")
     with pytest.raises(KeyError):
         t_configs.get("no-such-arch")
 
