@@ -12,9 +12,11 @@ Phases, each reported on its own line:
              replayed from a CUDA graph), the plain version's time, a library
              call's time where one computes the same function (also from a
              graph), and the least time the card could take (bound); the
-             paged kernel also at the dense architectures' layouts (Hkv, G,
-             hd) = (32, 1, 96), (8, 7, 128), (1, 48, 128) and (8, 2, 256)
-             with softcap 50, in bf16 and float32;
+             paged kernel also at the architectures' layouts (Hkv, G, hd) =
+             (32, 1, 96), (8, 7, 128), (1, 48, 128), (8, 2, 256) with
+             softcap 50, (8, 2, 64), (8, 6, 128) and (8, 2, 128), in bf16
+             and float32; the bit-serial kernel also at the recurrent and
+             MoE shapes (2560 x 10576, 5120 x 2560, 3 rows of 512 x 1024);
   4 design   the layer-scale design study, the analytic kernels' path: every
              matmul shape of musicgen-medium at 512 rows through
              ``ops.imc_matmul(mode="imc_analytic")`` at each billed QR and CM
@@ -33,19 +35,26 @@ Phases, each reported on its own line:
              and faults (a transient decode error retried to the same
              tokens, a refused kernel launch that escapes the engine);
              counting the kernels' launches;
-  archs      the dense public architectures at full published width and
-             depth (bf16, seeded random weights), served through the CLI:
+  archs      the public architectures at full published width (bf16,
+             seeded random weights), served through the CLI at full depth:
              phi3-mini-3.8b on the digital (metered), bit-serial and frozen
              analytic substrates, gemma2-9b digital (with one 4100-token
              request whose local layers wrap their 4096-token rings) and
              bit-serial, granite-20b digital (48 query heads on one kv
-             head) and deepseek-coder-33b digital (66.7 GB of weights);
-             each line: weight bytes, peak memory after init and after
-             serving, KV bytes, tok/s, mean TTFT and the launches by route
-             and paged layout; then gemma2's window request alone through
-             prefill + decode_step against the engine's tokens;
-  6 parity   the SMOKE configs in float32 (musicgen-medium and the four
-             dense architectures): the engine on the card against the
+             head), deepseek-coder-33b digital (66.7 GB of weights),
+             mamba2-2.7b (SSD layers, no attention) and recurrentgemma-2b
+             (RG-LRU and local attention; one 2100-token request wraps its
+             2048-token rings) digital and bit-serial, granite-moe-1b-a400m
+             (32 experts, top 8) digital and bit-serial, internvl2-2b
+             digital; then dbrx-132b at full width and 8 of its 40 layers
+             (``reduced``), built and served in-process (the CLI has no
+             depth flag); each line: weight bytes, peak memory after init
+             and after serving, KV and recurrent-state bytes, tok/s, mean
+             TTFT and the launches by route and paged layout; then gemma2's
+             window request alone through prefill + decode_step against the
+             engine's tokens;
+  6 parity   the SMOKE configs in float32 (all ten architectures): the
+             engine on the card against the
              same engine on the CPU, greedy tokens identical (for the
              overload run, identical SLO counters); warm prefix admissions
              (copy-on-write included) against cold ones and card against CPU
@@ -289,12 +298,16 @@ def check_paged_attention(dev):
             "library_ms": library_ms}
 
 
-# the paged kernel's layouts of the dense public architectures: (name,
-# Hkv, G, hd, softcap); each is held in bf16 and float32 and timed in bf16
+# the paged kernel's layouts of the public architectures with global
+# attention: (name, Hkv, G, hd, softcap); each is held in bf16 and float32
+# and timed in bf16
 PAGED_LAYOUTS = (("phi3-mini-3.8b", 32, 1, 96, None),
                  ("deepseek-coder-33b", 8, 7, 128, None),
                  ("granite-20b", 1, 48, 128, None),
-                 ("gemma2-9b", 8, 2, 256, 50.0))
+                 ("gemma2-9b", 8, 2, 256, 50.0),
+                 ("granite-moe-1b-a400m", 8, 2, 64, None),
+                 ("dbrx-132b", 8, 6, 128, None),
+                 ("internvl2-2b", 8, 2, 128, None))
 
 
 LAYOUT_SLOTS, LAYOUT_BLOCK, LAYOUT_BLOCKS = 8, 8, 130
@@ -512,6 +525,52 @@ def bitserial_fp64_ceiling(plane_rows, k, m, bw):
     return 2 * plane_rows * k * bw * m / F64_TC_FLOPS_PER_S * 1e3
 
 
+def bitserial_case(imc, gen, b, k, m, dev):
+    """Seeded operands of one bit-serial call at the serve's knobs
+    (``imc``): 7-bit codes of a (b, k) x and a (k, m) w, a per-cell gain,
+    the spec, and one plane ADC step in output units."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    mc = ops.matmul_config_from_imc(imc, k)
+    spec = ref.BitSerialSpec(bx=mc.bx, bw=mc.bw, b_adc=mc.b_adc,
+                             rows=mc.rows, k_h=mc.k_h_counts,
+                             v_c=mc.v_c_counts, x_signed=True,
+                             sigma_noise=mc.sigma_thermal_counts)
+    x = torch.randn((b, k), generator=gen, device=dev)
+    w = torch.randn((k, m), generator=gen, device=dev)
+    xc, _ = ref.quantize_codes(x, 7, True, x.abs().max())
+    wc, _ = ref.quantize_codes(w, 7, True, w.abs().max())
+    gain = 1.0 + mc.sigma_d * torch.randn((k, m), generator=gen, device=dev)
+    step = spec.v_c / 2**spec.b_adc * 2 ** (spec.bw + spec.bx)
+    return xc, wc, gain, spec, step
+
+
+def bitserial_diff(label, xc, wc, g, spec, seed, step):
+    """The kernel against its plain version on one call: exact without
+    noise; with seeded noise at most 0.1% of elements may differ, by at
+    most one ADC step.  Returns (share of elements that differ, the
+    largest difference, the kernel's output)."""
+    import torch
+
+    from repro_torch.kernels import imc_mvm, ref
+
+    y_k = imc_mvm.imc_bitserial_matmul(xc, wc, g, spec, seed=seed)
+    y_p = ref.imc_bitserial_ref(xc, wc, g, spec, seed=seed)
+    torch.cuda.synchronize()
+    diff = (y_k - y_p).abs()
+    frac, worst = float((diff > 0).float().mean()), float(diff.max())
+    if seed is None and frac > 0:
+        raise AssertionError(f"bitserial {label} (gain {g is not None}) "
+                             f"noiseless differs: max abs {worst}")
+    if frac > 1e-3 or worst > step:
+        raise AssertionError(f"bitserial {label} with noise and gain: "
+                             f"{frac:.2e} of elements differ (limit 1e-3), "
+                             f"max {worst}")
+    return frac, worst, y_k
+
+
 def check_bitserial(dev):
     """Every bit-serial shape of the bit-serial serve's decode step, at its 4
     slots and knobs (7x7 bits, 256-row banks, b_adc 10): the projections
@@ -530,7 +589,7 @@ def check_bitserial(dev):
     import torch
 
     from repro_torch.core.imc_linear import IMCConfig
-    from repro_torch.kernels import build, imc_mvm, ops, ref
+    from repro_torch.kernels import build, imc_mvm, ref
 
     imc = IMCConfig(mode="imc_bitserial", bx=7, bw=7, v_wl=0.7)
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -541,40 +600,17 @@ def check_bitserial(dev):
     worst = {True: 0.0, False: 0.0}
     ms, kernel_ms = {}, {}
     for k, m in SITE_SHAPES:
-        mc = ops.matmul_config_from_imc(imc, k)
-        spec = ref.BitSerialSpec(bx=mc.bx, bw=mc.bw, b_adc=mc.b_adc,
-                                 rows=mc.rows, k_h=mc.k_h_counts,
-                                 v_c=mc.v_c_counts, x_signed=True,
-                                 sigma_noise=mc.sigma_thermal_counts)
-        x = torch.randn((b, k), generator=gen, device=dev)
-        w = torch.randn((k, m), generator=gen, device=dev)
-        xc, _ = ref.quantize_codes(x, 7, True, x.abs().max())
-        wc, _ = ref.quantize_codes(w, 7, True, w.abs().max())
-        gain = 1.0 + mc.sigma_d * torch.randn((k, m), generator=gen,
-                                              device=dev)
-        step = spec.v_c / 2**spec.b_adc * 2 ** (spec.bw + spec.bx)
+        xc, wc, gain, spec, step = bitserial_case(imc, gen, b, k, m, dev)
         x8, w8 = imc_mvm._code_bytes(xc), imc_mvm._code_bytes(wc)
         fracs, notes = {}, {}
         # without gain and noise (the LM head's instantiation), with gain
         # but no noise (checked only), with both (the projections')
         for g, seed in ((None, None), (gain, None), (gain, 4242)):
-            y_k = imc_mvm.imc_bitserial_matmul(xc, wc, g, spec, seed=seed)
-            y_p = ref.imc_bitserial_ref(xc, wc, g, spec, seed=seed)
-            torch.cuda.synchronize()
-            diff = (y_k - y_p).abs()
-            frac = float((diff > 0).float().mean())
-            if seed is None and frac > 0:
-                raise AssertionError(
-                    f"bitserial ({k}x{m}, gain {g is not None}) noiseless "
-                    f"differs: max abs {float(diff.max())}")
+            frac, diff, y_k = bitserial_diff(f"{k}x{m}", xc, wc, g, spec,
+                                             seed, step)
             if seed is None and g is not None:
                 continue
-            if frac > 1e-3 or float(diff.max()) > step:
-                raise AssertionError(
-                    f"bitserial ({k}x{m}) with noise and gain: {frac:.2e} of "
-                    f"elements differ (limit 1e-3), max {float(diff.max())}")
-            worst[g is not None] = max(worst[g is not None],
-                                       float(diff.max()))
+            worst[g is not None] = max(worst[g is not None], diff)
             fracs[g is not None] = frac
             key = (k, m, g is not None)
             ms[key] = time_ms(lambda: imc_mvm.imc_bitserial_matmul(
@@ -654,6 +690,55 @@ def check_bitserial(dev):
                  kernel_ms=kernel_ms.get((1536, 2048, False)),
                  plain_ms=lm_plain_ms, bound_ms=lm_bound, bound_by=lm_by,
                  shape=f"{b}x1536x2048 (LM head), no noise or gain")]
+
+
+# bit-serial shapes of the recurrent and MoE architectures' main path, at
+# their serve's knobs (7x7 bits): (B, K, M, where)
+ARCH_BITSERIAL_SHAPES = (
+    (4, 2560, 10576, "mamba2-2.7b ssm.in_proj, 4 slots"),
+    (3, 512, 1024, "granite-moe-1b-a400m expert mlp.wo, capacity 3"),
+    (4, 5120, 2560, "mamba2-2.7b ssm.out_proj, 4 slots"))
+
+
+def check_bitserial_shapes(dev):
+    """The bit-serial kernel at ``ARCH_BITSERIAL_SHAPES`` (K of 512 and
+    5120, M of 10576, which is not a multiple of 64, and 3 rows): each
+    against the plain version without noise and gain (exact), with gain and
+    no noise (exact) and with seeded noise and gain (at most 0.1% of
+    elements may differ by a code); the noisy call with gain (the
+    projections' instantiation) and the call without either (the packed
+    conv cache's) timed from graph replays, the plain version by wall
+    clock, beside the bound."""
+    import torch
+
+    from repro_torch.core.imc_linear import IMCConfig
+    from repro_torch.kernels import imc_mvm, ref
+
+    imc = IMCConfig(mode="imc_bitserial", bx=7, bw=7, v_wl=0.7)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for b, k, m, where in ARCH_BITSERIAL_SHAPES:
+        xc, wc, gain, spec, step = bitserial_case(imc, gen, b, k, m, dev)
+        notes = []
+        for g, seed in ((None, None), (gain, None), (gain, 4242)):
+            frac, _, _ = bitserial_diff(f"{b}x{k}x{m}", xc, wc, g, spec,
+                                        seed, step)
+            if seed is None and g is not None:
+                continue
+            ms = time_ms(lambda: imc_mvm.imc_bitserial_matmul(
+                xc, wc, g, spec, seed=seed))
+            plain_ms = wall_ms(lambda: ref.imc_bitserial_ref(
+                xc, wc, g, spec, seed=seed), iters=3, warmup=1)
+            bound, by = bitserial_bound(b, k, m, spec.bw * spec.bx,
+                                        g is not None)
+            what = ("with noise and gain, " + f"{frac:.2e} of elements "
+                    "differ" if g is not None else
+                    "without noise and gain, exact")
+            notes.append(f"{what}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                         f"bound_ms={bound:.5f} ({by}, {bound / ms:.1%} of "
+                         f"it)")
+        say("kernels", f"bitserial {b}x{k}x{m} ({where}) rows={spec.rows} "
+            f"b_adc={spec.b_adc}; with gain and no noise exact; "
+            + "; ".join(notes))
 
 
 def analytic_bound(b, k, m, products):
@@ -1572,6 +1657,9 @@ WINDOW_PROMPT, WINDOW_GEN = 4100, 32
 # runs, all 32 tokens equal (0.1255, NVIDIA H100 80GB HBM3, 700.00 W;
 # PERF.md §6)
 WINDOW_DEV_CAP = 2 * 0.1255
+# recurrentgemma-2b's long request: 2100 prompt tokens wrap its local
+# layers' 2048-token rings
+RG_LONG_PROMPT = 2100
 # (arch, substrate, CLI arguments): full published widths and depths, bf16,
 # seeded random weights
 ARCH_RUNS = (
@@ -1598,7 +1686,30 @@ ARCH_RUNS = (
     ("deepseek-coder-33b", "digital",
      ["--batch", "4", "--requests", "8", "--prompt-lens", PROMPTS, "--gen",
       "16", "--chunk", "8"]),
+    ("mamba2-2.7b", "digital",
+     ["--batch", "8", "--requests", "8", "--prompt-lens", PROMPTS, "--gen",
+      "32", "--chunk", "8"]),
+    ("mamba2-2.7b", "imc_bitserial",
+     ["--batch", "4", "--requests", "6", "--prompt-lens", SHORT_PROMPTS,
+      "--gen", "8", "--chunk", "4", "--imc-mode", "imc_bitserial"]),
+    ("recurrentgemma-2b", "digital",
+     ["--batch", "8", "--requests", "9", "--prompt-lens",
+      f"{RG_LONG_PROMPT},{PROMPTS}", "--gen", "32", "--chunk", "8"]),
+    ("recurrentgemma-2b", "imc_bitserial",
+     ["--batch", "4", "--requests", "6", "--prompt-lens", SHORT_PROMPTS,
+      "--gen", "8", "--chunk", "4", "--imc-mode", "imc_bitserial"]),
+    ("granite-moe-1b-a400m", "digital",
+     ["--batch", "8", "--requests", "8", "--prompt-lens", PROMPTS, "--gen",
+      "32", "--chunk", "8"]),
+    ("granite-moe-1b-a400m", "imc_bitserial",
+     ["--batch", "4", "--requests", "6", "--prompt-lens", SHORT_PROMPTS,
+      "--gen", "8", "--chunk", "4", "--imc-mode", "imc_bitserial"]),
+    ("internvl2-2b", "digital",
+     ["--batch", "8", "--requests", "8", "--prompt-lens", PROMPTS, "--gen",
+      "32", "--chunk", "8"]),
 )
+# dbrx-132b at full width and 8 of its 40 layers (see ``serve_dbrx``)
+DBRX_LAYERS = 8
 
 
 def free_device():
@@ -1676,7 +1787,6 @@ def phase_archs():
     totals, layouts = {}, {}
     for arch, mode, args in ARCH_RUNS:
         cfg = configs.get(arch)
-        n_global = sum(k == "attn" for k in cfg.pattern) * cfg.n_full_cycles
         label = f"{arch} {mode}"
         free_device()
         reset_counts()
@@ -1699,13 +1809,7 @@ def phase_archs():
                     0 <= t < cfg.vocab_size for t in r.out):
                 raise AssertionError(f"{label}: request {r.rid} produced "
                                      f"{r.out}")
-        want = pa.layout_key(cfg.n_kv_heads, cfg.q_per_kv,
-                             cfg.resolved_head_dim, torch.bfloat16)
-        if lay != {want: n_global * eng.decode_steps}:
-            raise AssertionError(
-                f"{label}: paged launches by layout {lay}, want "
-                f"{n_global} global layers x {eng.decode_steps} steps at "
-                f"{want}")
+        check_layouts(label, cfg, lay, eng.decode_steps)
         if mode == "imc_bitserial" and counts["bitserial"] <= 0:
             raise AssertionError(f"{label}: the bit-serial kernel never "
                                  f"launched: {counts}")
@@ -1713,18 +1817,9 @@ def phase_archs():
         if peak_init > 1.1 * weights:
             raise AssertionError(f"{label}: init peak {peak_init} bytes > "
                                  f"1.1 x {weights} weight bytes")
-        peak = torch.cuda.max_memory_allocated()
-        say("archs", f"{label}: {cfg.n_layers} layers d_model {cfg.d_model} "
-            f"(Hkv, G, hd) = ({cfg.n_kv_heads}, {cfg.q_per_kv}, "
-            f"{cfg.resolved_head_dim}); weights {weights / 1e9:.2f} GB, peak "
-            f"after init {peak_init / 1e9:.2f} GB "
-            f"({peak_init / weights:.3f}x), after serving {peak / 1e9:.2f} "
-            f"GB; KV pool {eng.kv_pool_bytes() / 1e9:.3f} GB "
-            f"({eng._fixed_kv_bytes / 1e9:.3f} GB of rings); {len(fin)} "
-            f"requests, {rep['tokens']} tokens in {rep['seconds']:.2f} s, "
-            f"{rep['tok_s']:.1f} tok/s, mean TTFT {rep['ttft_ms']:.1f} ms, "
-            f"{eng.decode_steps} decode steps, {eng.prefill_calls} "
-            f"prefills; launches {counts}, paged by layout {lay}")
+        say("archs", f"{label}: " + arch_line(cfg, eng, rep, weights,
+                                              peak_init) + f"; launches "
+            f"{counts}, paged by layout {lay}")
         meter = rep["meter"]
         if meter is not None:
             from repro_torch.launch.metering import format_report
@@ -1760,11 +1855,125 @@ def phase_archs():
         else:
             del rep, eng, fin
     free_device()
+    counts, lay = serve_dbrx()
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+    for k, v in lay.items():
+        layouts[k] = layouts.get(k, 0) + v
+    free_device()
     for key in [*totals]:
         if key.startswith("analytic"):
             del totals[key]
     totals.update({f"paged_attention[{k}]": v for k, v in layouts.items()})
     return totals
+
+
+def check_layouts(label, cfg, lay, steps):
+    """One paged-attention launch per global layer (remainder layers
+    included) and decode step, all at the architecture's layout; none where
+    nothing is paged (mamba2, recurrentgemma)."""
+    import torch
+
+    from repro_torch.kernels import paged_attention as pa
+
+    kinds = cfg.pattern * cfg.n_full_cycles + cfg.tail_kinds
+    n_global = kinds.count("attn")
+    want = pa.layout_key(cfg.n_kv_heads, cfg.q_per_kv,
+                         cfg.resolved_head_dim, torch.bfloat16)
+    expect = {want: n_global * steps} if n_global else {}
+    if lay != expect:
+        raise AssertionError(f"{label}: paged launches by layout {lay}, want "
+                             f"{n_global} global layers x {steps} steps at "
+                             f"{want}")
+
+
+def arch_line(cfg, eng, rep, weights, peak_init):
+    """One served architecture's numbers: shapes, memory (weights, init and
+    serve peaks, KV pool, rings and recurrent state per slot) and the
+    serve's throughput and TTFT."""
+    import torch
+
+    peak = torch.cuda.max_memory_allocated()
+    fin = rep["finished"]
+    attn = (f"(Hkv, G, hd) = ({cfg.n_kv_heads}, {cfg.q_per_kv}, "
+            f"{cfg.resolved_head_dim})"
+            if {"attn", "local"} & set(cfg.pattern) else "no attention")
+    return (f"{cfg.n_layers} layers d_model {cfg.d_model} {attn}; "
+            f"weights {weights / 1e9:.2f} GB, peak after init "
+            f"{peak_init / 1e9:.2f} GB ({peak_init / weights:.3f}x), after "
+            f"serving {peak / 1e9:.2f} GB; KV pool "
+            f"{eng.kv_pool_bytes() / 1e9:.3f} GB ("
+            f"{eng._fixed_kv_bytes / 1e9:.3f} GB of rings and recurrent "
+            f"state; recurrent state {eng.state_bytes_per_slot} bytes per "
+            f"slot); {len(fin)} requests, {rep['tokens']} tokens in "
+            f"{rep['seconds']:.2f} s, {rep['tok_s']:.1f} tok/s, mean TTFT "
+            f"{rep['ttft_ms']:.1f} ms, {eng.decode_steps} decode steps, "
+            f"{eng.prefill_calls} prefills")
+
+
+def serve_dbrx():
+    """dbrx-132b at full width (d_model 6144, 16 experts of d_ff 10752, GQA
+    48/8 at hd 128) and ``DBRX_LAYERS`` of its 40 layers: each layer holds
+    about 3.26 B parameters (6.5 GB in bf16), the embedding and head 2.47
+    GB, so 8 layers take about 54.6 GB and 10 would leave no room to serve
+    on 80 GB.  The serve CLI has no depth flag (the reference's has none),
+    so this builds the cut config, ``init_params`` and the ``Engine`` itself
+    and serves digital traffic through ``serve``: 4 slots, the mixed
+    prompts, 16 new tokens.  Returns (launch counts, paged launches by
+    layout)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params, param_bytes
+
+    full = configs.get("dbrx-132b")
+    cfg = full.replace(n_layers=DBRX_LAYERS)
+    label = f"dbrx-132b digital ({DBRX_LAYERS} of {full.n_layers} layers)"
+    lens = [int(n) for n in PROMPTS.split(",")]
+    gen = 16
+    reset_counts()
+    pa.paged_attention_cuda.layouts = {}
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=0, device="cuda")
+    weights = param_bytes(params)
+    peak_init = torch.cuda.max_memory_allocated() - base
+    if peak_init > 1.1 * weights:
+        raise AssertionError(f"{label}: init peak {peak_init} bytes > 1.1 x "
+                             f"{weights} weight bytes")
+    say("archs", f"reduced: n_layers {full.n_layers} -> {DBRX_LAYERS} "
+        f"(dbrx-132b: {weights / 1e9:.2f} GB of weights at {DBRX_LAYERS} "
+        f"layers; about 6.5 GB a layer in bf16, so 40 layers, about 263 GB, "
+        f"wait for tensor-parallel serving over four cards)")
+    rnp = np.random.default_rng(0)
+    reqs = [serve.Request(rid=i, prompt=rnp.integers(0, cfg.vocab_size, n),
+                          max_new=gen) for i, n in enumerate(lens)]
+    cache_len = max(lens) + gen + 8
+    engine = serve.Engine(cfg, params, 4, cache_len, max_chunk=8)
+    t0 = time.perf_counter()
+    fin = serve.serve(engine, reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    lay = dict(pa.paged_attention_cuda.layouts)
+    for r in fin:
+        if r.error is not None or len(r.out) != gen or not all(
+                0 <= t < cfg.vocab_size for t in r.out):
+            raise AssertionError(f"{label}: request {r.rid} produced "
+                                 f"{r.out} ({r.error})")
+    check_layouts(label, cfg, lay, engine.decode_steps)
+    tokens = sum(len(r.out) for r in fin)
+    ttfts = [r.ttft for r in fin if r.ttft is not None]
+    rep = {"finished": fin, "tokens": tokens, "seconds": dt,
+           "tok_s": tokens / dt, "ttft_ms": 1e3 * float(np.mean(ttfts))}
+    say("archs", f"{label}: " + arch_line(cfg, engine, rep, weights,
+                                          peak_init)
+        + f"; launches {counts}, paged by layout {lay}")
+    del params, engine, fin, reqs
+    return counts, lay
 
 
 # ---------------------------------------------------------------------------
@@ -1779,10 +1988,39 @@ def phase_archs():
 # quantizer code.
 EDGE_DEV_CAP = 2 * 0.0827
 
-# the SMOKE configs held card against CPU (gemma2's window is 16, so the
-# 48-token prompts wrap its rings)
+# the SMOKE configs held card against CPU (gemma2's and recurrentgemma's
+# windows are 16, so the 48-token prompts wrap their rings)
 PARITY_ARCHS = ("musicgen-medium", "phi3-mini-3.8b", "deepseek-coder-33b",
-                "granite-20b", "gemma2-9b")
+                "granite-20b", "gemma2-9b", "mamba2-2.7b",
+                "recurrentgemma-2b", "granite-moe-1b-a400m", "dbrx-132b",
+                "internvl2-2b")
+
+
+@contextlib.contextmanager
+def router_margins():
+    """Records, for every ``apply_moe`` call made inside, the smallest gap
+    between a token's k-th and (k+1)-th router probability (a near tie
+    there is a routing knife edge); yields the list of those minima."""
+    import torch
+
+    from repro_torch.models import moe
+
+    seen = []
+    real = moe.apply_moe
+
+    def apply_moe(params, x, n_experts, top_k, *a, **k):
+        probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
+                              @ params["router"], dim=-1)
+        top = torch.topk(probs, min(top_k + 1, n_experts), dim=-1).values
+        if top.shape[-1] > top_k:
+            seen.append(float((top[:, top_k - 1] - top[:, top_k]).min()))
+        return real(params, x, n_experts, top_k, *a, **k)
+
+    moe.apply_moe = apply_moe
+    try:
+        yield seen
+    finally:
+        moe.apply_moe = real
 
 
 def phase_parity(dev):
@@ -1825,13 +2063,19 @@ def phase_parity(dev):
         params_gpu = tree_map(lambda t: t.to(dev), params_cpu)
         reset_counts()
         # the card runs once (A, unforced), so the counts are its launches;
-        # musicgen-medium's runs stay strictly identical, as before
-        edges = mode == "imc_bitserial" and arch != "musicgen-medium"
-        verdict = tie_parity(f"{arch} {mode}", runner(cfg, params_gpu),
-                             runner(cfg, params_cpu), ties=False,
-                             strict=True, edges=edges)
+        # musicgen-medium's runs stay strictly identical, as before; a
+        # router's near tie is a knife edge of the same kind as a flipped
+        # quantizer code, judged by the same rule
+        edges = arch != "musicgen-medium" and (mode == "imc_bitserial"
+                                               or cfg.n_experts > 0)
+        with router_margins() as margins:
+            verdict = tie_parity(f"{arch} {mode}", runner(cfg, params_gpu),
+                                 runner(cfg, params_cpu), ties=False,
+                                 strict=True, edges=edges)
+        routed = (f"; smallest router top-{cfg.top_k} margin "
+                  f"{min(margins)!r}" if margins else "")
         say("parity", f"{arch} SMOKE float32 {mode}, card against CPU: "
-            f"{verdict}; card launches {read_counts()}")
+            f"{verdict}{routed}; card launches {read_counts()}")
 
     overload_parity(dev)
     prefix_parity(dev)
@@ -2685,7 +2929,9 @@ def main() -> int:
     kernels = []
     if "kernels" in phases:
         kernels = [check_paged_attention(dev), *check_paged_layouts(dev),
-                   *check_bitserial(dev), check_analytic(dev),
+                   *check_bitserial(dev)]
+        check_bitserial_shapes(dev)
+        kernels += [check_analytic(dev),
                    check_analytic_int8(dev), check_seed_bitserial(dev)]
     counts = {}
     if "design" in phases:

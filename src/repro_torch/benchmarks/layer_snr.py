@@ -4,7 +4,7 @@ output-ADC override map (the substrate API at layer scale).
 ``site_snr_records`` is deterministic closed forms, no model execution.  The
 reference's whole-model SNR sweep (``whole_model_snr_sweep``: cross-entropy
 under noise injected into every layer of gemma2-9b and mamba2-2.7b) needs
-those architectures and ``loss_fn``, which are not ported yet.
+``loss_fn``, which is not ported yet.
 """
 from __future__ import annotations
 
@@ -28,9 +28,8 @@ OVERRIDE_EXTRA_BITS = {"lm_head": 2, "attn": 1}
 
 def whole_model_snr_sweep(*args, **kwargs):
     raise NotImplementedError(
-        "whole_model_snr_sweep is not ported to PyTorch yet: it needs the "
-        "gemma2-9b and mamba2-2.7b architectures and loss_fn (ROADMAP: queue "
-        "1, other archs and training)")
+        "whole_model_snr_sweep is not ported to PyTorch yet: it needs "
+        "loss_fn (ROADMAP: queue 1, training)")
 
 
 def site_snr_records(arch: str = "musicgen-medium", snr_t_db: float = 14.0,

@@ -1,41 +1,40 @@
 """Architecture config registry: ``get(name)`` / ``get_smoke(name)`` /
-``ARCH_NAMES``.  Only the architectures ported so far are known; the others
-raise with a pointer to the port's ROADMAP."""
+``ARCH_NAMES``, the reference's ten architectures."""
 from repro_torch.configs import (
+    dbrx_132b,
     deepseek_coder_33b,
     gemma2_9b,
     granite_20b,
+    granite_moe_1b,
+    internvl2_2b,
+    mamba2_2p7b,
     musicgen_medium,
     phi3_mini,
+    recurrentgemma_2b,
 )
 from repro_torch.configs.base import ArchConfig  # noqa: F401
 
 # in the reference registry's order
 _MODULES = {
+    "internvl2-2b": internvl2_2b,
+    "recurrentgemma-2b": recurrentgemma_2b,
+    "granite-moe-1b-a400m": granite_moe_1b,
+    "dbrx-132b": dbrx_132b,
     "deepseek-coder-33b": deepseek_coder_33b,
     "granite-20b": granite_20b,
     "phi3-mini-3.8b": phi3_mini,
     "gemma2-9b": gemma2_9b,
     "musicgen-medium": musicgen_medium,
+    "mamba2-2.7b": mamba2_2p7b,
 }
-
-# the reference's other architectures, not ported yet
-_WAITING = (
-    "internvl2-2b", "recurrentgemma-2b", "granite-moe-1b-a400m", "dbrx-132b",
-    "mamba2-2.7b",
-)
 
 ARCH_NAMES = tuple(_MODULES.keys())
 
 
 def _module(name: str):
-    if name in _MODULES:
-        return _MODULES[name]
-    if name in _WAITING:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported to PyTorch yet "
-            "(ROADMAP: other archs wait for later slices)")
-    raise KeyError(f"unknown architecture {name!r}")
+    if name not in _MODULES:
+        raise KeyError(f"unknown architecture {name!r}")
+    return _MODULES[name]
 
 
 def get(name: str) -> ArchConfig:

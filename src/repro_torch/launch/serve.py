@@ -13,14 +13,19 @@ Engine design (the PyTorch counterpart of ``repro.launch.serve.Engine``):
                        device.  The host-side ``BlockAllocator`` hands out
                        blocks; physical block 0 is the garbage block that
                        inactive and overrun rows write to.  Sliding-window
-                       rings (bounded at the window span) stay contiguous
-                       per slot, are written whole at admission and count
-                       as fixed KV bytes (``kv_pool_bytes``).
+                       rings (bounded at the window span) and recurrent
+                       states (SSD, RG-LRU: fixed size) stay contiguous per
+                       slot, are written whole at admission and count as
+                       fixed KV bytes (``kv_pool_bytes``).  A pattern with
+                       no global attention keeps a pool of one block.
   batched prefill      the FIFO prefix of pending requests sharing one
                        power-of-two bucket is admitted as ONE (R, bucket)
                        prefill (R padded to a power of two), then ONE insert
                        writes each row's prompt K/V into its blocks and its
-                       block-table row.
+                       block-table row.  Recurrent and MoE patterns prefill
+                       at the exact length (``needs_exact_prefill``: pad
+                       tokens would enter the state or contend for expert
+                       capacity), and MoE admits one request per prefill.
   lazy allocation      admission allocates the prompt's blocks; generation
                        blocks are allocated on the block-boundary crossing
                        before each decode chunk.  Pool exhaustion preempts
@@ -67,8 +72,8 @@ Engine design (the PyTorch counterpart of ``repro.launch.serve.Engine``):
   failure isolation    a transient device error (``runtime.fault``) on a
                        prefill group, a warm prefill or a decode chunk is
                        retried once with the same call on the same device
-                       (a decode chunk first puts back the ring rows it
-                       overwrote).
+                       (a decode chunk first puts back the ring rows and
+                       the recurrent states it overwrote).
                        If it persists, a batched group re-admits each member
                        alone (a poison row fails alone), a warm admission
                        fails its request, and a decode chunk fails only the
@@ -103,6 +108,7 @@ from repro_torch.models import (
     prefill,
     resolve_device,
 )
+from repro_torch.models.model import tree_map
 from repro_torch.runtime import fault as fault_lib
 from repro_torch.runtime.prefix_cache import PrefixCache
 
@@ -165,6 +171,13 @@ class Request:
         if self.t_submit is None or self.t_first is None:
             return None
         return self.t_first - self.t_submit
+
+
+def needs_exact_prefill(cfg) -> bool:
+    """Patterns that cannot take padded (bucketed) prefill: recurrent state
+    integrates pad garbage; MoE pad tokens contend for expert capacity."""
+    kinds = tuple(cfg.pattern) + tuple(cfg.tail_kinds)
+    return any(k in ("ssm", "rglru") for k in kinds) or cfg.n_experts > 0
 
 
 def prefill_bucket(length: int, bucketable: bool, cache_len: int) -> int:
@@ -327,19 +340,27 @@ class Engine:
         self.max_chunk = max_chunk
         self.rng = rng
         self._key_count = 0
-        self.bucketable = True  # attention-only patterns take padded prefill
+        self.bucketable = not needs_exact_prefill(cfg)
+        # MoE expert capacity couples the rows of a batch: a batched prefill
+        # would route differently than one request alone, so R = 1 there
+        self.batch_prefill = cfg.n_experts == 0
+        kinds = tuple(cfg.pattern) + tuple(cfg.tail_kinds)
+        self.has_paged = "attn" in kinds
         if kv_blocks is None:
             # full provisioning: admission never stalls on blocks
             kv_blocks = batch_slots * self.max_blocks + 1
+        if not self.has_paged:
+            kv_blocks = 1  # nothing is paged: the garbage block alone
         self.alloc = BlockAllocator(kv_blocks)
         self.alloc_policy = alloc_policy
         # prefix sharing is sound only when EVERY per-request KV byte lives
         # in the paged pool, so that linking blocks reconstructs a cached
-        # prefix exactly: a sliding-window ring cannot be, so such patterns
-        # serve cold
-        if prefix_cache and any(k != "attn" for k in cfg.pattern):
+        # prefix exactly: a sliding-window ring, a recurrent state or MoE
+        # routing (capacity couples the rows) cannot be, so those serve cold
+        if prefix_cache and not (self.has_paged and cfg.n_experts == 0
+                                 and all(k == "attn" for k in kinds)):
             log.info("prefix cache disabled: pattern %s carries non-paged "
-                     "per-request state", cfg.pattern)
+                     "per-request state", kinds)
             prefix_cache = False
         self.prefix: Optional[PrefixCache] = (
             PrefixCache(block_size) if prefix_cache else None)
@@ -364,7 +385,18 @@ class Engine:
                                  block_size, device=self.device)
         cache.pop("pos")
         self.cache = cache
+        # every layer group's cache with a leading layer axis: the pattern
+        # positions' stacked leaves, and views of each remainder layer's
+        self._groups = list(cache["blocks"].values()) + [
+            tree_map(lambda t: t[None], c)
+            for c in cache.get("tail", {}).values()]
         self._block_bytes, self._fixed_kv_bytes = self._kv_accounting()
+        if self.prefix is not None and self._fixed_kv_bytes > 0:
+            # a contiguous ring or recurrent leaf: part of the per-request
+            # state is not addressable through block tables
+            log.info("prefix cache disabled: %d bytes of contiguous "
+                     "per-request KV state", self._fixed_kv_bytes)
+            self.prefix = None
         self.pos = torch.zeros((batch_slots,), dtype=torch.int64,
                                device=self.device)
         self.last_token = torch.zeros((batch_slots,), dtype=torch.int64,
@@ -387,26 +419,32 @@ class Engine:
 
     # -- bookkeeping ----------------------------------------------------------
     def _paged_layers(self):
-        """The stacked {"pk","pv","bt"} dict of every paged pattern position."""
-        return [c for c in self.cache["blocks"].values() if "pk" in c]
+        """The stacked {"pk","pv","bt"} dict of every paged layer group."""
+        return [c for c in self._groups if "pk" in c]
 
     def _kv_accounting(self) -> Tuple[int, int]:
         """(bytes per physical block summed over the paged layers, bytes of
-        the always-allocated contiguous KV leaves: sliding-window rings)."""
-        block_bytes = fixed = 0
-        for c in self.cache["blocks"].values():
+        the always-allocated contiguous per-slot leaves: sliding-window rings
+        and recurrent states).  The reference counts the rings only;
+        ``state_bytes_per_slot`` is the recurrent part."""
+        block_bytes = fixed = state = 0
+        for c in self._groups:
             if "pk" in c:
                 for leaf in (c["pk"], c["pv"]):  # (L, NB, bs, Hkv, hd)
                     block_bytes += (leaf.numel() // leaf.shape[1]
                                     * leaf.element_size())
-            else:
-                for leaf in (c["k"], c["v"]):
-                    fixed += leaf.numel() * leaf.element_size()
+                continue
+            for key, leaf in c.items():
+                n = leaf.numel() * leaf.element_size()
+                fixed += n
+                if key not in ("k", "v"):
+                    state += n
+        self.state_bytes_per_slot = state // self.batch_slots
         return block_bytes, fixed
 
     def kv_pool_bytes(self) -> int:
         """Bytes of the whole KV cache: every physical block plus the
-        rings."""
+        rings and recurrent states."""
         return (self._fixed_kv_bytes
                 + self.alloc.num_blocks * self._block_bytes)
 
@@ -459,11 +497,15 @@ class Engine:
         return len(req.prompt) + req.max_new - 1
 
     def _blocks_total(self, req: Request) -> int:
+        if not self.has_paged:
+            return 0
         return -(-self._total_positions(req) // self.block)
 
     def _blocks_needed(self, req: Request) -> int:
         """Blocks allocated at admission: the prompt insert's coverage (lazy)
         or the worst case (reserve)."""
+        if not self.has_paged:
+            return 0
         if self.alloc_policy == "reserve":
             return self._blocks_total(req)
         return -(-len(req.full_prompt) // self.block)
@@ -529,8 +571,9 @@ class Engine:
             bucket = self._bucket(pending[0])
             group: List[Request] = []
             reserved = 0
+            limit = len(free_slots) if self.batch_prefill else 1
             for r in pending:
-                if len(group) >= len(free_slots) or self._bucket(r) != bucket:
+                if len(group) >= limit or self._bucket(r) != bucket:
                     break
                 if not self._fits(r):
                     break
@@ -587,7 +630,8 @@ class Engine:
                 logits, cache1 = prefill(
                     self.params, self.cfg, torch.as_tensor(toks, device=dev),
                     cache_len=bucket, rng=self._next_key(),
-                    true_len=torch.as_tensor(true_len, device=dev))
+                    true_len=(torch.as_tensor(true_len, device=dev)
+                              if self.bucketable else None))
             return torch.argmax(logits[:, -1], dim=-1), cache1
 
         try:
@@ -654,24 +698,30 @@ class Engine:
     def _insert(self, cache1, slot_ids, bt_rows, tok0, true_len):
         """Write a prefill group into the engine cache: each row's prompt K/V
         into its allocated blocks (logical block j -> bt_rows[r, j]; blocks
-        past the allocation go to garbage block 0), its block-table row into
-        every paged layer's table, each local layer's ring into its slot
-        (right-padded: a prefill ring narrower than the engine's span has the
-        identity layout, bucket < window), and its first token and
-        position."""
+        past the allocation go to garbage block 0) and its block-table row
+        into every paged layer's table; each contiguous leaf (a local
+        layer's ring, a recurrent layer's state and conv inputs) into its
+        slot, right-padded on every other axis (a prefill ring narrower than
+        the engine's span has the identity layout, bucket < window; a prompt
+        shorter than the conv window leaves fewer conv rows, padded as the
+        reference pads them); then its first token and position."""
         bs = self.block
         dev = self.device
         slots = torch.as_tensor(slot_ids, dtype=torch.int64, device=dev)
         rows = torch.as_tensor(bt_rows, device=dev)
         r = len(slot_ids)
-        for key, eng in self.cache["blocks"].items():
-            pref = cache1["blocks"][key]
+        prefs = list(cache1["blocks"].values()) + [
+            tree_map(lambda t: t[None], cache1["tail"][k])
+            for k in self.cache.get("tail", {})]
+        for eng, pref in zip(self._groups, prefs):
             if "pk" not in eng:
-                for kv_key in ("k", "v"):
-                    ring, src = eng[kv_key], pref[kv_key][:, :r]
-                    pad = ring.shape[2] - src.shape[2]
-                    ring[:, slots] = torch.nn.functional.pad(
-                        src, (0, 0, 0, 0, 0, pad)).to(ring.dtype)
+                for key, leaf in eng.items():
+                    src = pref[key][:, :r]
+                    pads = []
+                    for ax in range(src.dim() - 1, 1, -1):
+                        pads += [0, leaf.shape[ax] - src.shape[ax]]
+                    leaf[:, slots] = torch.nn.functional.pad(
+                        src, pads).to(leaf.dtype)
                 continue
             eng["bt"][:, slots] = rows
             for pool_key, kv_key in (("pk", "k"), ("pv", "v")):
@@ -739,7 +789,7 @@ class Engine:
         an allocation failure preempts victims until the grow fits or the
         grower itself yields.  New table entries go to the device in one
         indexed write per paged pattern position."""
-        if self.alloc_policy != "lazy":
+        if not self.has_paged or self.alloc_policy != "lazy":
             return
         triples: List[Tuple[int, int, int]] = []
         order = sorted((i for i, s in enumerate(self.slots) if s is not None),
@@ -1060,29 +1110,38 @@ class Engine:
         self.last_token, self.pos = tok, pos
         return torch.stack(toks, dim=1).to(torch.int32)
 
-    def _save_rings(self, n_steps: int):
-        """Copies of the ring rows (local layers) a chunk of ``n_steps``
-        overwrites: rows ``(pos + t) % span`` of every slot, t < n_steps.
-        A wrapped ring holds in-window keys there, which a chunk that fails
-        part way has replaced by later positions' keys; paged pools need
-        nothing, since decode masks their rows past ``pos``."""
+    def _save_state(self, n_steps: int):
+        """Copies of the contiguous per-slot state a chunk of ``n_steps``
+        overwrites: the ring rows ``(pos + t) % span`` of every slot (local
+        layers), t < n_steps, and the active slots' recurrent states and
+        conv inputs, which every step rewrites whole.  A chunk that fails
+        part way has replaced wrapped in-window keys and advanced the
+        recurrences; paged pools need nothing, since decode masks their rows
+        past ``pos``."""
         saved = []
         steps = torch.arange(n_steps, device=self.device)
         rows = torch.arange(self.batch_slots, device=self.device)[:, None]
-        for c in self.cache["blocks"].values():
+        live = torch.as_tensor([i for i, s in enumerate(self.slots)
+                                if s is not None], device=self.device)
+        for c in self._groups:
             if "pk" in c:
                 continue
-            idx = torch.remainder(self.pos[:, None] + steps, c["k"].shape[2])
-            # (L, slots, n_steps, Hkv, hd) copies
-            saved.append((c, idx, c["k"][:, rows, idx], c["v"][:, rows, idx]))
-        return rows, saved
+            if "k" in c:
+                idx = torch.remainder(self.pos[:, None] + steps,
+                                      c["k"].shape[2])
+                # (L, slots, n_steps, Hkv, hd) copies
+                saved.append((c, (rows, idx), {k: c[k][:, rows, idx]
+                                               for k in ("k", "v")}))
+            else:
+                saved.append((c, (live,), {k: v[:, live]
+                                           for k, v in c.items()}))
+        return saved
 
     @staticmethod
-    def _restore_rings(rings):
-        rows, saved = rings
-        for c, idx, k, v in saved:
-            c["k"][:, rows, idx] = k
-            c["v"][:, rows, idx] = v
+    def _restore_state(saved):
+        for c, index, leaves in saved:
+            for k, v in leaves.items():
+                c[k][(slice(None),) + index] = v
 
     def decode_chunk(self, n_steps: Optional[int] = None) -> np.ndarray:
         """Run ``n_steps`` decode steps; returns the (slots, T) token block,
@@ -1091,9 +1150,10 @@ class Engine:
         A transient device error is retried once: the engine's tokens and
         positions change only when a chunk returns, a re-run rewrites the
         same paged K/V positions with the same values, and the ring rows
-        the failed run overwrote are put back first (``_save_rings``), so
-        the retry is exact.  If the error persists, only the requests in
-        flight retire with an error status and the engine goes on."""
+        and recurrent states the failed run overwrote are put back first
+        (``_save_state``), so the retry is exact.  If the error persists,
+        only the requests in flight retire with an error status and the
+        engine goes on."""
         if n_steps is None:
             n_steps = self.next_chunk()
         if n_steps <= 0:
@@ -1106,7 +1166,7 @@ class Engine:
         active = torch.as_tensor([s is not None for s in self.slots],
                                  device=self.device)
         key = self._next_key()
-        rings = self._save_rings(n_steps)
+        saved = self._save_state(n_steps)
 
         def run_chunk():
             if self.failure_injector is not None:
@@ -1116,7 +1176,7 @@ class Engine:
                     return self._run_chunk(n_steps, active, key)
             except Exception as e:
                 if fault_lib.is_transient_device_error(e):
-                    self._restore_rings(rings)
+                    self._restore_state(saved)
                 raise
 
         try:
@@ -1456,8 +1516,9 @@ def main(argv=None) -> dict:
         log.info("froze substrate calibration on a %s reference batch "
                  "(%d sites)", ref.shape,
                  len(cfg.imc.calibration.site_names()))
-    max_bucket = max(prefill_bucket(n + args.shared_prefix_len, True, 10**9)
-                     for n in lens)
+    bucketable = not needs_exact_prefill(cfg)
+    max_bucket = max(prefill_bucket(n + args.shared_prefix_len, bucketable,
+                                    10**9) for n in lens)
     cache_len = max_bucket + args.gen + 8
     meter = None
     if args.energy_report:

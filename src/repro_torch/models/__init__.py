@@ -1,5 +1,6 @@
-"""Attention-only decoder models (the slice of the JAX model zoo ported so
-far: global and sliding-window attention, dense MLPs)."""
+"""The JAX model zoo's decoders: global and sliding-window attention, the
+Mamba-2 SSD and RG-LRU recurrent blocks, dense and mixture-of-experts MLPs,
+and VLM prefix embeddings."""
 from repro_torch.models.model import (  # noqa: F401
     decode_step,
     forward,

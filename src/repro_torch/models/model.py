@@ -2,9 +2,11 @@
 
 Parameters mirror the JAX reference's tree: each pattern position's blocks
 are stacked along a leading layer axis under ``params["blocks"]["p{i}"]``
+and the remainder layers live unstacked under ``params["tail"]["t{i}"]``
 (``convert.py`` carries a JAX tree across leaf for leaf).  Caches mirror it
-too.  Entry points take an explicit ``device``; ``None`` means the card, and
-raises where there is none.
+too.  A ``vlm`` config takes precomputed prefix embeddings (B, P, d_model)
+in place of its first P token embeddings.  Entry points take an explicit
+``device``; ``None`` means the card, and raises where there is none.
 """
 from __future__ import annotations
 
@@ -47,23 +49,24 @@ def layer_params(stacked, li: int):
     return tree_map(lambda t: t[li], stacked)
 
 
-def _check_arch(cfg: ArchConfig):
-    """Refuse what the port does not serve yet: VLM prefixes and the
-    recurrent (SSM, RG-LRU) and MoE kinds.  Remainder layers occur only in
-    recurrent patterns."""
-    for kind in cfg.pattern:
-        tf.check_kind(cfg, kind)
-    if cfg.tail_kinds:
-        raise NotImplementedError(
-            f"pattern {cfg.pattern} leaves remainder layers "
-            f"{cfg.tail_kinds}: not ported yet (ROADMAP)")
-    if cfg.modality == "vlm":
-        raise NotImplementedError("vlm prefixes are not ported yet (ROADMAP)")
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
+
+
+def _leaves(path, sub):
+    """(path, tensor) for every leaf of ``sub`` found at ``path``."""
+    if isinstance(sub, dict):
+        for k, v in sub.items():
+            yield from _leaves(path + (k,), v)
+    else:
+        yield path, sub
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> Dict[str, Any]:
@@ -72,9 +75,10 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> Dict[str, Any]:
     reproducible in PyTorch; use ``convert.params_from_jax`` for those).
 
     Each stacked block leaf is allocated once and filled layer by layer, in
-    the draw order of stacking a list of layers, so the peak memory is the
-    weights plus one layer's draws, not twice the weights."""
-    _check_arch(cfg)
+    the draw order of stacking a list of layers; a layer is drawn one part
+    at a time (a module, or one MoE expert stack), each copied into its row
+    before the next is drawn, so the peak memory is the weights plus one
+    part's draws, not twice the weights or one whole layer more."""
     device = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
     gen = torch.Generator(device=device)
@@ -94,27 +98,24 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> Dict[str, Any]:
     n_full = cfg.n_full_cycles
     blocks = {}
     for pi, kind in enumerate(cfg.pattern):
-        stacked = None
+        stacked: Dict[str, Any] = {}
         for li in range(n_full):
-            layer = tf.init_block(gen, cfg, kind, dtype, device)
-            if stacked is None:
-                stacked = tree_map(lambda t: torch.empty(
-                    (n_full,) + tuple(t.shape), dtype=t.dtype,
-                    device=t.device), layer)
-            _fill(stacked, layer, li)
-            del layer  # freed before the next layer's draws
+            for path, sub in tf.init_block_parts(gen, cfg, kind, dtype,
+                                                 device):
+                for leaf_path, t in _leaves(path, sub):
+                    if li == 0:
+                        tf.put(stacked, leaf_path, torch.empty(
+                            (n_full,) + tuple(t.shape), dtype=t.dtype,
+                            device=t.device))
+                    _get(stacked, leaf_path)[li].copy_(t)
+                del sub, t  # freed before the next part's draws
         blocks[f"p{pi}"] = stacked
     params["blocks"] = blocks
+    if cfg.tail_kinds:
+        params["tail"] = {
+            f"t{ti}": tf.init_block(gen, cfg, kind, dtype, device)
+            for ti, kind in enumerate(cfg.tail_kinds)}
     return params
-
-
-def _fill(stacked, layer, li: int):
-    """Copy one layer's leaves into row ``li`` of the stacked leaves."""
-    for k, v in layer.items():
-        if isinstance(v, dict):
-            _fill(stacked[k], v, li)
-        else:
-            stacked[k][li].copy_(v)
 
 
 def param_bytes(params) -> int:
@@ -129,8 +130,9 @@ def init_paged_cache(cfg: ArchConfig, batch: int, cache_len: int,
     """Paged decode cache, per pattern position stacked over layers: global
     blocks get pools ``(L, num_blocks, block_size, Hkv, hd)`` and block
     tables ``(L, batch, max_blocks)`` (identical contents across layers);
-    local blocks keep contiguous rings ``(L, batch, span, Hkv, hd)``."""
-    _check_arch(cfg)
+    local blocks keep contiguous rings ``(L, batch, span, Hkv, hd)`` and
+    recurrent blocks their per-slot states.  Remainder layers' caches sit
+    unstacked under ``cache["tail"]``."""
     device = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
     n_full = cfg.n_full_cycles
@@ -144,6 +146,10 @@ def init_paged_cache(cfg: ArchConfig, batch: int, cache_len: int,
         cache["blocks"][f"p{pi}"] = tree_map(
             lambda t: torch.zeros((n_full,) + tuple(t.shape), dtype=t.dtype,
                                   device=t.device), one)
+    for ti, kind in enumerate(cfg.tail_kinds):
+        cache.setdefault("tail", {})[f"t{ti}"] = tf.init_block_cache_paged(
+            cfg, kind, batch, cache_len, dtype, num_blocks, block_size,
+            device)
     return cache
 
 
@@ -152,10 +158,13 @@ def init_paged_cache(cfg: ArchConfig, batch: int, cache_len: int,
 # ---------------------------------------------------------------------------
 
 
-def _embed_inputs(params, cfg: ArchConfig, tokens, positions):
+def _embed_inputs(params, cfg: ArchConfig, tokens, prefix_embeds, positions):
     x = params["embed"][tokens]  # (B, S, d)
     if cfg.emb_scale:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype)
+    if cfg.modality == "vlm" and prefix_embeds is not None:
+        p = prefix_embeds.shape[1]
+        x = torch.cat([prefix_embeds.to(x.dtype), x[:, p:]], dim=1)
     if cfg.pos_kind == "learned":
         x = x + params["pos_table"][positions]
     elif cfg.pos_kind == "sinusoidal":
@@ -176,59 +185,80 @@ def _head(params, cfg: ArchConfig, x):
     return logits
 
 
+def tail_rng(rng: Optional[int], ti: int) -> Optional[int]:
+    """Remainder layer ``ti``'s noise seed (the reference folds in
+    ``10_000 + ti``)."""
+    return layer_rng(rng, 10_000 + ti)
+
+
 # ---------------------------------------------------------------------------
 # full sequence: forward / prefill
 # ---------------------------------------------------------------------------
 
 
+def _stack_trees(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
 def _run_full(params, cfg: ArchConfig, x, positions, rng, want_cache: bool,
               cache_len: int, true_len=None):
     """Every layer in the reference's order: cycle ``li`` runs pattern
-    positions 0, 1, ... (gemma2: local 0, global 0, local 1, ...)."""
-    ks = {f"p{pi}": [] for pi in range(len(cfg.pattern))}
-    vs = {f"p{pi}": [] for pi in range(len(cfg.pattern))}
+    positions 0, 1, ... (gemma2: local 0, global 0, local 1, ...), then the
+    remainder layers.  Returns (x, MoE aux summed over layers, stacked
+    caches, tail caches)."""
+    per_pos = {f"p{pi}": [] for pi in range(len(cfg.pattern))}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for li in range(cfg.n_full_cycles):
         for pi, kind in enumerate(cfg.pattern):
             r = layer_rng(layer_rng(rng, pi), li)
-            x, c = tf.apply_block_full(
+            x, c, a = tf.apply_block_full(
                 layer_params(params["blocks"][f"p{pi}"], li), x, cfg, kind,
                 positions, r, want_cache, cache_len, true_len=true_len)
+            aux = aux + a
             if want_cache:
-                ks[f"p{pi}"].append(c["k"])
-                vs[f"p{pi}"].append(c["v"])
-    caches = {}
-    if want_cache:
-        for key in ks:
-            caches[key] = {"k": torch.stack(ks[key]),
-                           "v": torch.stack(vs[key])}
-    return x, caches
+                per_pos[f"p{pi}"].append(c)
+    tail = {}
+    for ti, kind in enumerate(cfg.tail_kinds):
+        x, c, a = tf.apply_block_full(
+            params["tail"][f"t{ti}"], x, cfg, kind, positions,
+            tail_rng(rng, ti), want_cache, cache_len, true_len=true_len)
+        aux = aux + a
+        tail[f"t{ti}"] = c
+    caches = ({k: _stack_trees(v) for k, v in per_pos.items()}
+              if want_cache else {})
+    return x, aux, caches, tail
 
 
-def forward(params, cfg: ArchConfig, tokens, rng: Optional[int] = None):
-    """Full-sequence logits (B, S, V) and the (zero) MoE aux loss."""
-    _check_arch(cfg)
+def forward(params, cfg: ArchConfig, tokens, prefix_embeds=None,
+            rng: Optional[int] = None):
+    """Full-sequence logits (B, S, V) and the MoE aux loss (a float32
+    scalar, zero without experts)."""
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x = _embed_inputs(params, cfg, tokens, positions)
-    x, _ = _run_full(params, cfg, x, positions, rng, False, 0)
-    return _head(params, cfg, x), 0.0
+    x = _embed_inputs(params, cfg, tokens, prefix_embeds, positions)
+    x, aux, _, _ = _run_full(params, cfg, x, positions, rng, False, 0)
+    return _head(params, cfg, x), aux
 
 
 def prefill(params, cfg: ArchConfig, tokens, cache_len: int,
-            rng: Optional[int] = None, true_len=None):
+            prefix_embeds=None, rng: Optional[int] = None, true_len=None):
     """Process a prompt batch; returns (last-position logits (B, 1, V),
     cache).  With ``true_len`` (B,) the prompts are right-padded to S: logits
     are taken at each row's true last position, ``cache["pos"]`` is
     ``true_len`` and each local layer's ring is packed from its row's true
-    tail.  The cache holds each global layer's K/V in the linear layout
-    ``(L, B, cache_len, Hkv, hd)`` and each local layer's ring ``(L, B,
-    min(window, cache_len), Hkv, hd)``; ``decode_step`` takes it as is."""
-    _check_arch(cfg)
+    tail (recurrent blocks refuse padded prompts).  The cache holds each
+    global layer's K/V in the linear layout ``(L, B, cache_len, Hkv, hd)``,
+    each local layer's ring ``(L, B, min(window, cache_len), Hkv, hd)`` and
+    each recurrent layer's final state and last conv inputs, with the
+    remainder layers' under ``cache["tail"]``; ``decode_step`` takes it as
+    is."""
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x = _embed_inputs(params, cfg, tokens, positions)
-    x, caches = _run_full(params, cfg, x, positions, rng, True, cache_len,
-                          true_len=true_len)
+    x = _embed_inputs(params, cfg, tokens, prefix_embeds, positions)
+    x, _, caches, tail = _run_full(params, cfg, x, positions, rng, True,
+                                   cache_len, true_len=true_len)
     if true_len is None:
         x_last = x[:, -1:]
         pos = torch.tensor(s, dtype=torch.int64, device=tokens.device)
@@ -236,7 +266,10 @@ def prefill(params, cfg: ArchConfig, tokens, cache_len: int,
         pos = torch.as_tensor(true_len, dtype=torch.int64,
                               device=tokens.device)
         x_last = x[torch.arange(b, device=tokens.device), pos - 1][:, None]
-    return _head(params, cfg, x_last), {"blocks": caches, "pos": pos}
+    cache = {"blocks": caches, "pos": pos}
+    if tail:
+        cache["tail"] = tail
+    return _head(params, cfg, x_last), cache
 
 
 # ---------------------------------------------------------------------------
@@ -256,7 +289,7 @@ def decode_step(params, cfg: ArchConfig, token, cache,
     pos = cache["pos"]
     pos_b = torch.as_tensor(pos, device=token.device).to(torch.int64)
     pos_b = pos_b.expand(b) if pos_b.dim() == 0 else pos_b
-    x = _embed_inputs(params, cfg, token[:, None], pos_b[:, None])
+    x = _embed_inputs(params, cfg, token[:, None], None, pos_b[:, None])
     for li in range(cfg.n_full_cycles):
         for pi, kind in enumerate(cfg.pattern):
             r = layer_rng(layer_rng(rng, pi), li)
@@ -264,4 +297,8 @@ def decode_step(params, cfg: ArchConfig, token, cache,
                 layer_params(params["blocks"][f"p{pi}"], li), x, cfg, kind,
                 layer_params(cache["blocks"][f"p{pi}"], li), pos_b, r,
                 active=active)
+    for ti, kind in enumerate(cfg.tail_kinds):
+        x, _ = tf.apply_block_decode(
+            params["tail"][f"t{ti}"], x, cfg, kind, cache["tail"][f"t{ti}"],
+            pos_b, tail_rng(rng, ti), active=active)
     return _head(params, cfg, x), dict(cache, pos=pos + 1)

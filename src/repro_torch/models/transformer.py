@@ -1,17 +1,25 @@
-"""Block assembly for attention-only decoders.
+"""Block assembly: pattern-cycled decoder layers.
 
+Layers are grouped by the config's block ``pattern`` (gemma2 = ("local",
+"attn"), recurrentgemma = ("rglru", "rglru", "local"), mamba2 = ("ssm",)).
 Parameters of each pattern position are stacked along a leading layer axis
-(``n_full_cycles``), as in the JAX reference; the PyTorch forward walks the
-layers cycle by cycle in a Python loop over views of the stacked tensors.
-Global (``"attn"``) and sliding-window (``"local"``) attention blocks are
-ported; SSM and RG-LRU blocks and MoE MLPs wait for later slices.
+(``n_full_cycles``), as in the JAX reference; the remainder layers
+(``n_layers % len(pattern)``, ``cfg.tail_kinds``) are applied unstacked
+after them.  The PyTorch forward walks the layers in a Python loop over
+views of the stacked tensors.
+
+Block kinds: global (``"attn"``) and sliding-window (``"local"``) attention,
+the Mamba-2 SSD mixer (``"ssm"``, no MLP half) and the RG-LRU recurrent block
+(``"rglru"``); the MLP half is dense or a mixture of experts
+(``cfg.n_experts > 0``).
 
 Two paths share the block code:
   full     a whole sequence (forward / prefill), optionally returning the
-           block's K/V for the decode cache (a ring for local blocks);
+           block's decode cache (a ring for local blocks, the final state
+           and last conv inputs for recurrent ones);
   decode   one token per slot against the block's cache: a paged KV pool
            for global blocks in the engine, a contiguous cache (ring for
-           local blocks) otherwise.
+           local blocks, fixed-size state for recurrent ones) otherwise.
 """
 from __future__ import annotations
 
@@ -20,18 +28,20 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.imc_linear import linear
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rg_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, init_norm
 
 ATTN_KINDS = ("attn", "local")
+KINDS = ATTN_KINDS + ("ssm", "rglru")
 
 
-def check_kind(cfg: ArchConfig, kind: str):
-    if kind not in ATTN_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP)")
-    if cfg.n_experts > 0:
-        raise NotImplementedError("MoE blocks are not ported yet (ROADMAP)")
+def check_kind(kind: str):
+    if kind not in KINDS:
+        raise ValueError(f"unknown block kind {kind!r}")
 
 
 def attn_dims(cfg: ArchConfig, kind: str) -> attn_lib.AttnDims:
@@ -51,31 +61,76 @@ def attn_dims(cfg: ArchConfig, kind: str) -> attn_lib.AttnDims:
     )
 
 
-def init_block(gen, cfg: ArchConfig, kind: str, dtype, device):
-    check_kind(cfg, kind)
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def init_block_parts(gen, cfg: ArchConfig, kind: str, dtype, device):
+    """One block's parameters as (path, subtree) pairs in draw order: whole
+    modules, except that an MoE half comes one expert stack at a time.
+    ``models.model.init_params`` copies each part into its stacked leaves
+    before the next one is drawn, which bounds init's transient memory."""
+    check_kind(kind)
     d = cfg.d_model
-    p: Dict[str, Any] = {"norm1": init_norm(cfg.norm_kind, d, dtype, device)}
+    yield ("norm1",), init_norm(cfg.norm_kind, d, dtype, device)
     if cfg.post_norm:
-        p["norm1_post"] = init_norm(cfg.norm_kind, d, dtype, device)
-    p["mixer"] = attn_lib.init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
-                                         cfg.resolved_head_dim, dtype, device)
-    p["norm2"] = init_norm(cfg.norm_kind, d, dtype, device)
+        yield ("norm1_post",), init_norm(cfg.norm_kind, d, dtype, device)
+    if kind in ATTN_KINDS:
+        yield ("mixer",), attn_lib.init_attention(
+            gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+            dtype, device)
+    elif kind == "ssm":
+        yield ("mixer",), ssm_lib.init_ssm(
+            gen, d, cfg.ssm_expand, cfg.ssm_head_dim, cfg.ssm_groups,
+            cfg.ssm_state, cfg.conv_width, dtype, device)
+        return  # mamba2 blocks have no separate MLP
+    else:
+        yield ("mixer",), rg_lib.init_rglru(gen, d, cfg.rnn_width,
+                                            cfg.rnn_conv_width, dtype, device)
+    yield ("norm2",), init_norm(cfg.norm_kind, d, dtype, device)
     if cfg.post_norm:
-        p["norm2_post"] = init_norm(cfg.norm_kind, d, dtype, device)
-    p["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.mlp_kind, dtype, device)
+        yield ("norm2_post",), init_norm(cfg.norm_kind, d, dtype, device)
+    if cfg.n_experts > 0:
+        yield from moe_lib.init_moe_parts(gen, d, cfg.d_ff, cfg.n_experts,
+                                          cfg.mlp_kind, dtype, device,
+                                          prefix=("moe",))
+    else:
+        yield ("mlp",), init_mlp(gen, d, cfg.d_ff, cfg.mlp_kind, dtype,
+                                 device)
+
+
+def put(tree: Dict[str, Any], path, value):
+    """Set ``tree[path[0]][path[1]]... = value``, making the dicts on the
+    way."""
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def init_block(gen, cfg: ArchConfig, kind: str, dtype, device):
+    p: Dict[str, Any] = {}
+    for path, sub in init_block_parts(gen, cfg, kind, dtype, device):
+        put(p, path, sub)
     return p
 
 
 def cache_span(cfg: ArchConfig, kind: str, cache_len: int) -> int:
-    """Rows of a block's contiguous cache: the window for a local block
-    (its ring), ``cache_len`` for a global one."""
+    """Rows of an attention block's contiguous cache: the window for a
+    local block (its ring), ``cache_len`` for a global one."""
     return min(cfg.window, cache_len) if kind == "local" else cache_len
 
 
 def init_block_cache(cfg: ArchConfig, kind: str, batch: int, cache_len: int,
                      dtype, device):
-    """A block's contiguous decode cache (a ring for local blocks)."""
-    check_kind(cfg, kind)
+    """A block's contiguous decode cache: K/V (a ring for local blocks) or
+    a recurrent block's fixed-size state."""
+    check_kind(kind)
+    if kind == "ssm":
+        return ssm_lib.init_ssm_cache(batch, cfg, dtype, device)
+    if kind == "rglru":
+        return rg_lib.init_rglru_cache(batch, cfg.rnn_width,
+                                       cfg.rnn_conv_width, dtype, device)
     return attn_lib.init_kv_cache(batch, cache_span(cfg, kind, cache_len),
                                   cfg.n_kv_heads, cfg.resolved_head_dim,
                                   dtype, device)
@@ -85,10 +140,9 @@ def init_block_cache_paged(cfg: ArchConfig, kind: str, batch: int,
                            cache_len: int, dtype, num_blocks: int,
                            block_size: int, device):
     """Paged variant: a global block's KV becomes a block pool and block
-    table; a local block keeps its contiguous ring (already bounded at the
-    window)."""
-    check_kind(cfg, kind)
-    if kind == "local":
+    table; local rings (bounded at the window) and recurrent states (fixed
+    size per slot) keep their contiguous layout."""
+    if kind != "attn":
         return init_block_cache(cfg, kind, batch, cache_len, dtype, device)
     max_blocks = -(-cache_len // block_size)
     return attn_lib.init_paged_kv_cache(batch, num_blocks, block_size,
@@ -96,12 +150,23 @@ def init_block_cache_paged(cfg: ArchConfig, kind: str, batch: int,
                                         cfg.resolved_head_dim, dtype, device)
 
 
+# ---------------------------------------------------------------------------
+# apply
+# ---------------------------------------------------------------------------
+
+
 def _mlp_half(p, x, cfg: ArchConfig, rng):
+    """Returns (x + MLP(norm(x)), MoE aux loss)."""
     h = apply_norm(p["norm2"], x, cfg.norm_kind)
-    out = apply_mlp(p["mlp"], h, cfg.mlp_kind, cfg.imc, rng)
+    if cfg.n_experts > 0:
+        out, aux = moe_lib.apply_moe(
+            p["moe"], h, cfg.n_experts, cfg.top_k, cfg.capacity_factor,
+            cfg.moe_group_size, cfg.mlp_kind, cfg.imc, rng)
+    else:
+        out, aux = apply_mlp(p["mlp"], h, cfg.mlp_kind, cfg.imc, rng), 0.0
     if cfg.post_norm:
         out = apply_norm(p["norm2_post"], out, cfg.norm_kind)
-    return x + out
+    return x + out, aux
 
 
 def _pack_kv_cache(k, v, cache_len: int, window: Optional[int], dtype,
@@ -140,37 +205,92 @@ def _pack_kv_cache(k, v, cache_len: int, window: Optional[int], dtype,
     return {"k": k[rows, src].to(dtype), "v": v[rows, src].to(dtype)}
 
 
+def _pack_ssm_cache(p, h_in, state, cfg: ArchConfig, dtype):
+    """SSD decode cache from prefill: the final state and the last conv
+    inputs, projected again without noise (as the reference does; a prompt
+    shorter than ``conv_width - 1`` leaves fewer rows, which the engine's
+    insert right-pads)."""
+    proj = linear(p["mixer"]["in_proj"], h_in[:, -(cfg.conv_width - 1):],
+                  cfg.imc, site="ssm.in_proj")
+    d_inner = cfg.ssm_expand * cfg.d_model
+    gn = cfg.ssm_groups * cfg.ssm_state
+    xbc = proj[..., d_inner: 2 * d_inner + 2 * gn]
+    return {"conv": xbc.to(dtype), "state": state}
+
+
+def _pack_rglru_cache(p, h_in, h_last, cfg: ArchConfig, dtype):
+    xb = linear(p["mixer"]["rg_x"], h_in[:, -(cfg.rnn_conv_width - 1):],
+                cfg.imc, site="rg.x")
+    return {"conv": xb.to(dtype), "h": h_last}
+
+
+def _exact_only(kind: str, true_len):
+    if true_len is not None:
+        # recurrent state would integrate the pad garbage: serve engines use
+        # exact-length prefill for recurrent patterns
+        raise ValueError(f"bucketed (padded) prefill is not supported for "
+                         f"{kind} blocks")
+
+
 def apply_block_full(p, x, cfg: ArchConfig, kind: str, positions, rng,
                      want_cache: bool, cache_len: int, true_len=None):
-    """Full-sequence block. Returns (x, cache_or_None)."""
-    check_kind(cfg, kind)
+    """Full-sequence block. Returns (x, cache_or_None, MoE aux)."""
+    check_kind(kind)
     h = apply_norm(p["norm1"], x, cfg.norm_kind)
-    dims = attn_dims(cfg, kind)
-    q, k, v = attn_lib._project_qkv(p["mixer"], h, dims, positions, cfg.imc,
-                                    rng, site_prefix=kind)
-    ctx = attn_lib.prefill_attention(q, k, v, dims)
-    b, s = h.shape[:2]
-    ctx = ctx.reshape(b, s, dims.n_heads * dims.head_dim)
-    out = attn_lib.linear(p["mixer"]["wo"], ctx, cfg.imc, rng,
-                          site=f"{kind}.wo")
-    cache = (_pack_kv_cache(k, v, cache_len, dims.window, x.dtype, true_len)
-             if want_cache else None)
+    cache = None
+    if kind in ATTN_KINDS:
+        dims = attn_dims(cfg, kind)
+        q, k, v = attn_lib._project_qkv(p["mixer"], h, dims, positions,
+                                        cfg.imc, rng, site_prefix=kind)
+        ctx = attn_lib.prefill_attention(q, k, v, dims)
+        b, s = h.shape[:2]
+        ctx = ctx.reshape(b, s, dims.n_heads * dims.head_dim)
+        out = attn_lib.linear(p["mixer"]["wo"], ctx, cfg.imc, rng,
+                              site=f"{kind}.wo")
+        if want_cache:
+            cache = _pack_kv_cache(k, v, cache_len, dims.window, x.dtype,
+                                   true_len)
+    elif kind == "ssm":
+        out, state = ssm_lib.ssm_forward(p["mixer"], h, cfg, cfg.imc, rng)
+        if want_cache:
+            _exact_only(kind, true_len)
+            cache = _pack_ssm_cache(p, h, state, cfg, x.dtype)
+        if cfg.post_norm:
+            out = apply_norm(p["norm1_post"], out, cfg.norm_kind)
+        return x + out, cache, 0.0  # mamba2: no MLP half
+    else:
+        out, h_last = rg_lib.rglru_forward(p["mixer"], h, cfg, cfg.imc, rng)
+        if want_cache:
+            _exact_only(kind, true_len)
+            cache = _pack_rglru_cache(p, h, h_last, cfg, x.dtype)
     if cfg.post_norm:
         out = apply_norm(p["norm1_post"], out, cfg.norm_kind)
-    x = x + out
-    return _mlp_half(p, x, cfg, rng), cache
+    x, aux = _mlp_half(p, x + out, cfg, rng)
+    return x, cache, aux
 
 
 def apply_block_decode(p, x, cfg: ArchConfig, kind: str, cache, pos, rng,
                        active: Optional[torch.Tensor] = None):
-    """One-token block against its cache. Returns (x, cache)."""
-    check_kind(cfg, kind)
+    """One-token block against its cache (updated in place). Returns
+    (x, cache)."""
+    check_kind(kind)
     h = apply_norm(p["norm1"], x, cfg.norm_kind)
-    dims = attn_dims(cfg, kind)
-    out, cache = attn_lib.attention_decode(p["mixer"], h, cache, pos, dims,
-                                           cfg.imc, rng, active=active,
-                                           site_prefix=kind)
+    if kind in ATTN_KINDS:
+        dims = attn_dims(cfg, kind)
+        out, cache = attn_lib.attention_decode(p["mixer"], h, cache, pos,
+                                               dims, cfg.imc, rng,
+                                               active=active,
+                                               site_prefix=kind)
+    elif kind == "ssm":
+        out, cache = ssm_lib.ssm_decode(p["mixer"], h, cache, cfg, cfg.imc,
+                                        rng)
+        if cfg.post_norm:
+            out = apply_norm(p["norm1_post"], out, cfg.norm_kind)
+        return x + out, cache
+    else:
+        out, cache = rg_lib.rglru_decode(p["mixer"], h, cache, cfg, cfg.imc,
+                                         rng)
     if cfg.post_norm:
         out = apply_norm(p["norm1_post"], out, cfg.norm_kind)
-    x = x + out
-    return _mlp_half(p, x, cfg, rng), cache
+    x, _ = _mlp_half(p, x + out, cfg, rng)
+    return x, cache

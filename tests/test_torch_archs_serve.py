@@ -259,11 +259,16 @@ def test_rings_count_as_fixed_kv_and_disable_prefix_sharing(caplog):
 
 
 def test_engine_refuses_unported_kinds():
+    """Every block kind of the reference is ported (``transformer.KINDS``);
+    a kind outside it is refused where the engine builds its cache and
+    where the parameters are drawn, as the reference refuses it."""
+    from repro_torch.models import transformer as t_tf
+
+    assert set(t_tf.KINDS) == {"attn", "local", "ssm", "rglru"}
     cfg = TArch(name="t", family="hybrid", **TINY,
-                pattern=("rglru", "rglru", "local"), window=16,
-                rnn_width=64)
-    with pytest.raises(NotImplementedError, match="not ported"):
+                pattern=("conv", "attn"), window=16)
+    with pytest.raises(ValueError, match="unknown block kind"):
         t_serve.Engine(cfg, {"embed": torch.zeros(1)}, batch_slots=1,
                        cache_len=16)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="unknown block kind"):
         t_init_params(cfg, device="cpu")

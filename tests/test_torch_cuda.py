@@ -97,6 +97,9 @@ def test_paged_attention_long_context(dev):
     (8, 7, 128, None),    # deepseek-coder-33b
     (1, 48, 128, None),   # granite-20b: 24 query chunks of 2 rows
     (8, 2, 256, 50.0),    # gemma2-9b
+    (8, 2, 64, None),     # granite-moe-1b-a400m
+    (8, 6, 128, None),    # dbrx-132b: 3 query chunks of 2 rows
+    (8, 2, 128, None),    # internvl2-2b
 ])
 def test_paged_attention_architecture_layouts(dev, dtype, hkv, g, hd,
                                               softcap):
@@ -142,6 +145,68 @@ def test_init_params_full_width_peak_memory(dev):
     del params
 
 
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def test_ssd_block_full_width_against_cpu(dev):
+    """One mamba2-2.7b SSD mixer at full width (d_model 2560, 80 heads x
+    64, state 128, chunks of 128) over 300 tokens, in float32 on the card
+    against the same mixer and inputs in float32 on the CPU (held against
+    the JAX package by tests/test_torch_recurrent.py): the output and the
+    final state within 1e-4 of the CPU ones' largest magnitude."""
+    from repro_torch import configs
+    from repro_torch.models import ssm
+
+    cfg = configs.get("mamba2-2.7b").replace(dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    p = ssm.init_ssm(gen, cfg.d_model, cfg.ssm_expand, cfg.ssm_head_dim,
+                     cfg.ssm_groups, cfg.ssm_state, cfg.conv_width,
+                     torch.float32, "cpu")
+    x = torch.randn((2, 300, cfg.d_model), generator=gen)
+    y_cpu, s_cpu = ssm.ssm_forward(p, x, cfg)
+    y, s = ssm.ssm_forward(_to(p, dev), x.to(dev), cfg)
+    assert s.dtype == torch.float32 and s.device.type == dev.type
+    for a, b in ((y, y_cpu), (s, s_cpu)):
+        err = float((a.cpu() - b).abs().max())
+        assert err <= 1e-4 * float(b.abs().max()), err
+
+
+def test_moe_block_full_width_against_cpu(dev):
+    """One granite-moe-1b-a400m MoE half at full width (d_model 1024, 32
+    experts of d_ff 512, top 8, capacity 1.25) over 2 x 64 tokens, in
+    float32 on the card against the same half and inputs in float32 on the
+    CPU (held against the JAX package by tests/test_torch_moe.py): the
+    router's top-k choices equal, the output within 1e-4 of the CPU one's
+    largest magnitude, the aux loss within 1e-6."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+
+    cfg = configs.get("granite-moe-1b-a400m")
+    gen = torch.Generator().manual_seed(1)
+    p = {}
+    for path, t in moe.init_moe_parts(gen, cfg.d_model, cfg.d_ff,
+                                      cfg.n_experts, cfg.mlp_kind,
+                                      torch.float32, "cpu"):
+        node = p
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = t
+    x = torch.randn((2, 64, cfg.d_model), generator=gen)
+    args = (cfg.n_experts, cfg.top_k, cfg.capacity_factor,
+            cfg.moe_group_size, cfg.mlp_kind)
+    y_cpu, a_cpu = moe.apply_moe(p, x, *args)
+    y, a = moe.apply_moe(_to(p, dev), x.to(dev), *args)
+    pick = [torch.topk(xs.reshape(-1, cfg.d_model) @ r, cfg.top_k)
+            .indices.sort().values.cpu()
+            for xs, r in ((x, p["router"]), (x.to(dev), p["router"].to(dev)))]
+    assert torch.equal(pick[0], pick[1])
+    err = float((y.cpu() - y_cpu).abs().max())
+    assert err <= 1e-4 * float(y_cpu.abs().max()), err
+    assert abs(float(a) - float(a_cpu)) <= 1e-6
+
+
 def _codes(dev, b, k, m, bx, bw, x_signed, seed=1):
     rng = np.random.default_rng(seed)
     x = torch.tensor(rng.normal(size=(b, k)), dtype=torch.float32, device=dev)
@@ -184,6 +249,10 @@ def test_bitserial_kernel_matches_plain(dev, shape, noisy):
     (1, 6144, 1536, True),     # decode, one slot, 24 banks
     (4, 6144, 1536, True),     # decode, four slots
     (4, 1536, 2048, False),    # the LM head (popcount instantiation)
+    (4, 2560, 10576, True),    # mamba2-2.7b ssm.in_proj: M not a multiple
+    (3, 2560, 10576, False),   # of 64; its packed conv inputs (no noise)
+    (4, 5120, 2560, True),     # mamba2-2.7b ssm.out_proj
+    (3, 512, 1024, True),      # granite-moe expert mlp.wo, capacity 3
 ])
 def test_bitserial_kernel_matches_plain_at_serve_shapes(dev, b, k, m, gain):
     """The bit-serial serve's knobs (7x7 bits, 256-row banks, b_adc 10, its
