@@ -14,9 +14,11 @@ Phases, each reported on its own line:
              graph), and the least time the card could take (bound); the
              paged kernel also at the architectures' layouts (Hkv, G, hd) =
              (32, 1, 96), (8, 7, 128), (1, 48, 128), (8, 2, 256) with
-             softcap 50, (8, 2, 64), (8, 6, 128) and (8, 2, 128), in bf16
+             softcap 50, (8, 2, 64), (8, 6, 128) and (8, 2, 128), and one
+             rank's at 1x4, (6, 1, 64), (2, 6, 128), (1, 12, 128), in bf16
              and float32; the bit-serial kernel also at the recurrent and
-             MoE shapes (2560 x 10576, 5120 x 2560, 3 rows of 512 x 1024);
+             MoE shapes (2560 x 10576, 5120 x 2560, 3 rows of 512 x 1024)
+             and as four tensor-parallel ranks call it (column offsets);
   4 design   the layer-scale design study, the analytic kernels' path: every
              matmul shape of musicgen-medium at 512 rows through
              ``ops.imc_matmul(mode="imc_analytic")`` at each billed QR and CM
@@ -53,6 +55,14 @@ Phases, each reported on its own line:
              TTFT and the launches by route and paged layout; then gemma2's
              window request alone through prefill + decode_step against the
              engine's tokens;
+  mesh       tensor-parallel serving: ``--mesh 1x1`` through the CLI (one
+             rank over NCCL), then four ranks sharing the card over gloo
+             (processes): full-width musicgen-medium on digital, bit-serial
+             (noise and gain) and frozen analytic, dbrx-132b at 4 of its 40
+             layers and granite-20b at 2 of 52 (``reduced``), each against
+             the same run on one device (tokens, or knife-edge picks within
+             the runs' logit deviation, printed), the paged kernel at each
+             rank's layout, per-rank weight, KV-pool and peak bytes;
   6 parity   the SMOKE configs in float32 (all ten architectures): the
              engine on the card against the
              same engine on the CPU, greedy tokens identical (for the
@@ -105,7 +115,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "chip_smoke"  # logs and profiler tables (git-ignored)
-PHASES = ("device", "build", "kernels", "design", "serve", "archs",
+PHASES = ("device", "build", "kernels", "design", "serve", "archs", "mesh",
           "parity", "bench")
 # not run by default: a profiler trace of one decode chunk per substrate
 EXTRA_PHASES = ("profile", "tiles", "host", "kprofile", "chunks")
@@ -245,6 +255,31 @@ def check_paged_attention(dev):
         if not torch.equal(again, ctx_k):
             raise AssertionError("paged attention does not repeat bit for "
                                  "bit")
+    # an engine's idle rows: slots 5 and 6 never admitted (empty tables:
+    # both write block 0 at offset 0 and read it back), slot 3 retired with
+    # slot 2's table (it reads the block slot 2 writes); every new row
+    # lands before any is read, the highest slot's where two meet, so
+    # every row and the whole pools equal the plain version's, every run
+    bt_i, pos_i, act_i = bt.clone(), pos.clone(), active.clone()
+    bt_i[5:7], pos_i[5:7], act_i[5:7] = 0, 0, False
+    bt_i[3], pos_i[3], act_i[3] = bt[2], pos[2], False
+    pools_p = (pk.clone(), pv.clone())
+    ctx_ip, _, _ = pa.decode_plain(q, kn, vn, *pools_p, bt_i, pos_i, act_i,
+                                   scale=scale)
+    for _ in range(3):
+        pools_k = (pk.clone(), pv.clone())
+        ctx_ik, _, _ = pa.paged_attention_decode(q, kn, vn, *pools_k, bt_i,
+                                                 pos_i, act_i, scale=scale)
+        idle_err = float((ctx_ik - ctx_ip).abs().max())
+        if not torch.allclose(ctx_ik, ctx_ip, rtol=1e-5, atol=1e-5) or not (
+                torch.equal(pools_k[0], pools_p[0])
+                and torch.equal(pools_k[1], pools_p[1])):
+            raise AssertionError("paged attention with colliding idle rows "
+                                 f"differs from the plain version: max abs "
+                                 f"{idle_err}")
+    say("kernels", f"paged_attention with colliding idle rows (two empty "
+        f"tables, one stale): max abs {idle_err:.3e} in 3 launches, whole "
+        f"pools equal")
     # a decode step meets each layer's pools cold: rotate over 4 pool pairs
     # (4 x 102 MB) so no call finds the previous one's rows in the 50 MB L2
     pools = [(pk.clone(), pv.clone()) for _ in range(4)]
@@ -307,7 +342,13 @@ PAGED_LAYOUTS = (("phi3-mini-3.8b", 32, 1, 96, None),
                  ("gemma2-9b", 8, 2, 256, 50.0),
                  ("granite-moe-1b-a400m", 8, 2, 64, None),
                  ("dbrx-132b", 8, 6, 128, None),
-                 ("internvl2-2b", 8, 2, 128, None))
+                 ("internvl2-2b", 8, 2, 128, None),
+                 # one rank's layout at 1x4 (the mesh phase): head-sharded
+                 # musicgen-medium and dbrx-132b, granite-20b's replicated
+                 # pool under 12 of its 48 query heads
+                 ("musicgen-medium 1x4", 6, 1, 64, None),
+                 ("dbrx-132b 1x4", 2, 6, 128, None),
+                 ("granite-20b 1x4", 1, 12, 128, None))
 
 
 LAYOUT_SLOTS, LAYOUT_BLOCK, LAYOUT_BLOCKS = 8, 8, 130
@@ -694,6 +735,43 @@ def check_bitserial(dev):
 
 # bit-serial shapes of the recurrent and MoE architectures' main path, at
 # their serve's knobs (7x7 bits): (B, K, M, where)
+def check_bitserial_offset(dev):
+    """The bit-serial kernel as a tensor-parallel rank calls it: the
+    columns of the serve's (4, 1536) @ (1536, 6144) split over
+    ``MESH_RANKS`` ranks, noise and gain on; each shard, at its column
+    offset, equals its plain version there bit for bit, and the shards side
+    by side equal the whole call."""
+    import torch
+
+    from repro_torch.core.imc_linear import IMCConfig
+    from repro_torch.kernels import imc_mvm, ref
+
+    imc = IMCConfig(mode="imc_bitserial", bx=7, bw=7, v_wl=0.7)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    b, k, m, tp = BITSERIAL_SLOTS, 1536, 6144, MESH_RANKS
+    xc, wc, gain, spec, _ = bitserial_case(imc, gen, b, k, m, dev)
+    whole = imc_mvm.imc_bitserial_matmul(xc, wc, gain, spec, seed=4242)
+    per, parts = m // tp, []
+    for r in range(tp):
+        cols = slice(r * per, (r + 1) * per)
+        y_k = imc_mvm.imc_bitserial_matmul(xc, wc[:, cols], gain[:, cols],
+                                           spec, seed=4242, col0=r * per)
+        y_p = ref.imc_bitserial_ref(xc, wc[:, cols], gain[:, cols], spec,
+                                    seed=4242, col0=r * per)
+        torch.cuda.synchronize()
+        if not torch.equal(y_k, y_p):
+            raise AssertionError(f"bitserial rank {r} at column offset "
+                                 f"{r * per}: max abs "
+                                 f"{float((y_k - y_p).abs().max())}")
+        parts.append(y_k)
+    if not torch.equal(torch.cat(parts, dim=1), whole):
+        raise AssertionError("bitserial column shards differ from the whole "
+                             "call")
+    say("kernels", f"bitserial at column offsets: {tp} shards of {b}x{k}x"
+        f"{m} with noise and gain, each bit for bit its plain version at "
+        f"its offset, side by side the whole call")
+
+
 ARCH_BITSERIAL_SHAPES = (
     (4, 2560, 10576, "mamba2-2.7b ssm.in_proj, 4 slots"),
     (3, 512, 1024, "granite-moe-1b-a400m expert mlp.wo, capacity 3"),
@@ -1977,6 +2055,262 @@ def serve_dbrx():
 
 
 # ---------------------------------------------------------------------------
+# mesh: tensor-parallel serving
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 4
+MESH_LENS = [16, 64, 33, 128]
+MESH_GEN = 8
+# (label, arch, layers kept (None: all), substrate, noise seed, requests
+# (the first of MESH_LENS), cap): full published widths; dbrx-132b and
+# granite-20b cut in depth only (reduced).  The bit-serial case keeps two of
+# the four slots idle, whose rows enter its batch-wide dynamic ranges, and
+# must give the one device's tokens exactly (cap None): its banks are whole
+# and its noise sites and gain are the single device's.  The others may
+# differ only at knife edges, with the two runs' logits at most ``cap``
+# apart: twice the deviation of the case's runs on an H100 (both runs are
+# deterministic, so a run repeats it; a rank's cuBLAS products are not one
+# device's to the last bit, and a bf16 rounding then moves by one unit)
+MESH_CASES = (
+    ("musicgen-medium digital", "musicgen-medium", None, "digital", None, 4,
+     2 * 0.0546875),
+    ("musicgen-medium imc_bitserial (noise and gain, seed 7)",
+     "musicgen-medium", None, "imc_bitserial", 7, 2, None),
+    ("musicgen-medium imc_analytic frozen", "musicgen-medium", None,
+     "imc_analytic", None, 4, 2 * 0.30078125),
+    ("dbrx-132b digital", "dbrx-132b", 4, "digital", None, 4,
+     2 * 0.59375),
+    ("granite-20b digital", "granite-20b", 2, "digital", None, 4,
+     2 * 0.0625),
+)
+
+
+def mesh_cfg(case, calibration):
+    """A ``MESH_CASES`` entry's config; the frozen analytic substrate takes
+    ``calibration`` (a dict, measured on the whole model)."""
+    from repro_torch import configs
+    from repro_torch.core import substrate as substrate_lib
+    from repro_torch.core.imc_linear import IMCConfig
+
+    _, arch, layers, mode = case[:4]
+    cfg = configs.get(arch)
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
+    if mode != "digital":
+        sub = substrate_lib.as_substrate(
+            IMCConfig(mode=mode, bx=7, bw=7, v_wl=0.7))
+        if mode == "imc_analytic":
+            sub = sub.frozen(substrate_lib.Calibration.from_dict(calibration))
+        cfg = cfg.replace(imc=sub)
+    return cfg
+
+
+def mesh_serve(case, cfg, params, mesh=None, force=None):
+    """Serve a ``MESH_CASES`` entry's prompts (``MESH_GEN`` new tokens
+    each) under a :class:`TokenProbe`, on one device or as this rank of
+    ``mesh``; returns (tokens, counters as JSON, probe, engine, seconds)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import serve
+
+    label, rng, n_req = case[0], case[4], case[5]
+    rnp = np.random.default_rng(0)
+    reqs = [serve.Request(rid=i, prompt=rnp.integers(0, cfg.vocab_size, n),
+                          max_new=MESH_GEN)
+            for i, n in enumerate(MESH_LENS[:n_req])]
+    with probing(force=force) as probes:
+        eng = serve.Engine(cfg, params, 4, max(MESH_LENS) + MESH_GEN + 8,
+                           rng=rng, max_chunk=8, mesh=mesh)
+        t0 = time.perf_counter()
+        fin = serve.serve(eng, reqs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    for r in fin:
+        if r.error is not None or len(r.out) != MESH_GEN or not all(
+                0 <= t < cfg.vocab_size for t in r.out):
+            raise AssertionError(f"{label}: request {r.rid} produced "
+                                 f"{r.out} ({r.error})")
+    cnt = json.dumps({"prefill_calls": eng.prefill_calls,
+                      "prefill_rows": eng.prefill_rows,
+                      "decode_calls": eng.decode_calls,
+                      "decode_steps": eng.decode_steps})
+    return {r.rid: list(r.out) for r in fin}, cnt, probes[-1], eng, dt
+
+
+def mesh_rank(calibration):
+    """One rank of the mesh phase: every ``MESH_CASES`` run on this rank's
+    shard (``sharding.init_params``: drawn without the whole model), every
+    rank on the one card over gloo.  Returns, on rank 0, each run's tokens,
+    counters and logits and every rank's numbers."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding
+    from repro_torch.models import param_bytes
+
+    torch.cuda.set_device(0)
+    mesh = mesh_lib.make_serve_mesh(1, MESH_RANKS)
+    results = []
+    for case in MESH_CASES:
+        cfg = mesh_cfg(case, calibration)
+        free_device()
+        base = torch.cuda.memory_allocated()
+        params = sharding.init_params(cfg, mesh, seed=0, device="cuda")
+        weights = param_bytes(params)
+        peak_init = torch.cuda.max_memory_allocated() - base
+        reset_counts()
+        pa.paged_attention_cuda.layouts = {}
+        out, cnt, probe, eng, dt = mesh_serve(case, cfg, params, mesh=mesh)
+        mine = {"weights": weights, "peak_init": peak_init,
+                "peak": torch.cuda.max_memory_allocated(),
+                "pool": eng.kv_pool_bytes_per_device(),
+                "counts": read_counts(),
+                "layouts": dict(pa.paged_attention_cuda.layouts),
+                "seconds": dt}
+        ranks = [None] * MESH_RANKS
+        dist.all_gather_object(ranks, mine)
+        results.append({"out": out, "cnt": cnt, "logits": probe.logits,
+                        "level": probe.level, "whole": eng.kv_pool_bytes(),
+                        "kv_shard": eng.kv_shard,
+                        "steps": eng.decode_steps, "ranks": ranks})
+        del params, eng, probe
+    return results
+
+
+def phase_mesh():
+    """Tensor-parallel serving on the card.  (a) ``--mesh 1x1`` through the
+    CLI: one rank over NCCL, full-width musicgen-medium, digital.  (b, c)
+    ``MESH_RANKS`` ranks sharing the card over gloo (one process each):
+    full-width musicgen-medium (24 heads, 6 per rank) on digital,
+    bit-serial with noise and gain, and frozen analytic; dbrx-132b at full
+    width and 4 of its 40 layers (4 experts and 2 KV heads per rank);
+    granite-20b at 2 of its 52 layers (MQA: the pool replicated, 12 query
+    heads per rank).  Each run against the same run on one device:
+    bit-serial gives identical greedy tokens and counters; the others too,
+    except picks whose margin lies within the two runs' logit deviation,
+    each printed, with the deviation at most the case's cap (a rank's
+    cuBLAS products are not one device's to the last bit); one
+    paged-attention launch per layer and decode step at the rank's layout;
+    per-rank weight bytes, KV pool bytes per device, peak memory and tok/s
+    (four processes time-sharing one card: not a scaling number).  Returns
+    rank 0's launch counts."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import substrate as substrate_lib
+    from repro_torch.core.imc_linear import IMCConfig
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import init_params
+
+    totals, layouts = {}, {}
+    free_device()
+    argv = ["--arch", "musicgen-medium", "--batch", "4", "--requests",
+            str(len(MESH_LENS)), "--prompt-lens",
+            ",".join(map(str, MESH_LENS)), "--gen", str(MESH_GEN), "--seed",
+            "0", "--mesh", "1x1"]
+    counts, rep = serve_run("musicgen-medium digital --mesh 1x1 (one rank "
+                            "over NCCL)", argv, 48, 2048)
+    if rep["engine"].mesh_shape != "1x1":
+        raise AssertionError(f"--mesh 1x1 served on {rep['engine'].mesh_shape}")
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+    del rep
+    free_device()
+
+    # the frozen analytic case's calibration, measured on the whole model
+    cfg = configs.get("musicgen-medium").replace(
+        imc=substrate_lib.as_substrate(
+            IMCConfig(mode="imc_analytic", bx=7, bw=7, v_wl=0.7)))
+    params = init_params(cfg, seed=0, device="cuda")
+    ref = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                            (2, max(MESH_LENS)))
+    calibration = substrate_lib.calibrate_model(
+        cfg, params, [ref]).imc.calibration.to_dict()
+    del params
+    free_device()
+
+    t0 = time.perf_counter()
+    results = mesh_lib.launch(MESH_RANKS, "gloo", mesh_rank, calibration)
+    say("mesh", f"{MESH_RANKS} ranks on one card over gloo: "
+        f"{len(MESH_CASES)} runs in {time.perf_counter() - t0:.1f} s "
+        f"(starting the rank processes included)")
+    free_device()
+    for case, res in zip(MESH_CASES, results):
+        label = f"{case[0]} at 1x{MESH_RANKS}"
+        cfg = mesh_cfg(case, calibration)
+        kinds = cfg.pattern * cfg.n_full_cycles + cfg.tail_kinds
+        tp = MESH_RANKS
+        hkv = cfg.n_kv_heads // tp if res["kv_shard"] else cfg.n_kv_heads
+        g = cfg.n_heads // tp // (hkv if res["kv_shard"] else 1)
+        want = {pa.layout_key(hkv, g, cfg.resolved_head_dim,
+                              torch.bfloat16): kinds.count("attn")
+                * res["steps"]}
+        for r, mine in enumerate(res["ranks"]):
+            if mine["layouts"] != want:
+                raise AssertionError(f"{label}: rank {r} paged launches by "
+                                     f"layout {mine['layouts']}, want {want}")
+            if case[3] == "imc_bitserial" and mine["counts"]["bitserial"] <= 0:
+                raise AssertionError(f"{label}: rank {r} never launched the "
+                                     f"bit-serial kernel")
+        if res["kv_shard"] and res["ranks"][0]["pool"] * tp != res["whole"]:
+            raise AssertionError(f"{label}: pool bytes per device x {tp} != "
+                                 f"{res['whole']}")
+
+        def run_a(force, res=res):
+            return res["out"], res["cnt"], types.SimpleNamespace(
+                logits=res["logits"], level=res["level"])
+
+        whole = {}  # one device's weights, kept for a forced rerun
+
+        def run_b(force, case=case, cfg=cfg, whole=whole):
+            if not whole:
+                free_device()
+                whole["params"] = init_params(cfg, seed=0, device="cuda")
+            out, cnt, probe, eng, _ = mesh_serve(case, cfg, whole["params"],
+                                                 force=force)
+            del eng
+            return out, cnt, probe
+
+        cap = case[6]
+        verdict = tie_parity(label, run_a, run_b,
+                             ties=(cap is not None
+                                   and case[3] == "imc_analytic"),
+                             edges=cap is not None, strict=cap is None,
+                             cap=cap, show_dev=True)
+        whole.clear()
+        free_device()
+        say("mesh", f"{label} against one device: {verdict}")
+        tokens = sum(len(o) for o in res["out"].values())
+        for r, mine in enumerate(res["ranks"]):
+            say("mesh", f"{label} rank {r}: weights {mine['weights'] / 1e9:.3f}"
+                f" GB, init peak {mine['peak_init'] / 1e9:.3f} GB, KV pool "
+                f"{mine['pool'] / 1e6:.2f} MB on the device (whole "
+                f"{res['whole'] / 1e6:.2f} MB, "
+                f"{'head-sharded' if res['kv_shard'] else 'replicated'}), "
+                f"peak {mine['peak'] / 1e9:.3f} GB, {tokens} tokens in "
+                f"{mine['seconds']:.2f} s = {tokens / mine['seconds']:.1f} "
+                f"tok/s (four processes time-sharing one card, not a "
+                f"scaling number); launches {mine['counts']}, paged by "
+                f"layout {mine['layouts']}")
+        for k, v in res["ranks"][0]["counts"].items():
+            totals[k] = totals.get(k, 0) + v
+        for k, v in res["ranks"][0]["layouts"].items():
+            layouts[k] = layouts.get(k, 0) + v
+    for key in [*totals]:
+        if key.startswith("analytic"):
+            del totals[key]
+    totals.update({f"paged_attention[{k}]": v for k, v in layouts.items()})
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # phase 6: card against CPU on the SMOKE config
 # ---------------------------------------------------------------------------
 
@@ -2187,7 +2521,8 @@ def probing(ladder=None, force=None, rids=None):
 
 
 def tie_parity(label, run_a, run_b, ties: bool, strict: bool = False,
-               edges: bool = False):
+               edges: bool = False, cap: float = EDGE_DEV_CAP,
+               show_dev: bool = False):
     """Hold run A's tokens against run B's.  Each ``run(force)`` returns
     ({rid: tokens}, counters (a JSON string), probe).  Token counts must
     match, and the counters (before any forcing, when ``strict``).  Where
@@ -2204,15 +2539,17 @@ def tie_parity(label, run_a, run_b, ties: bool, strict: bool = False,
     differing pick passes where B's margin for its pick over A's token is
     within the largest deviation between A's and B's logits at that token
     (a knife edge), and A's and B's logits may deviate by at most
-    ``EDGE_DEV_CAP`` at any token.  Every token is compared."""
+    ``cap`` at any token (``EDGE_DEV_CAP``; None: no cap).  Every token is
+    compared; ``show_dev`` reports the largest logit deviation of identical
+    runs as well."""
     import torch
 
     def deviation(probe_a, probe_b):
         worst = max(float((probe_a.logits[k] - probe_b.logits[k]).abs().max())
                     for k in probe_a.logits)
-        if worst > EDGE_DEV_CAP:
+        if cap is not None and worst > cap:
             raise AssertionError(f"{label}: logits deviate by {worst!r}, "
-                                 f"above the cap {EDGE_DEV_CAP!r}")
+                                 f"above the cap {cap!r}")
         return f"; largest logit deviation {worst!r}"
 
     out_a, cnt_a, probe_a = run_a(None)
@@ -2227,7 +2564,8 @@ def tie_parity(label, run_a, run_b, ties: bool, strict: bool = False,
     n_tok = sum(lens_b.values())
     if out_a == out_b and cnt_a == cnt_b:
         return (f"all {n_tok} tokens and the counters identical ({cnt_a})"
-                + (deviation(probe_a, probe_b) if edges else ""))
+                + (deviation(probe_a, probe_b) if edges or show_dev
+                   else ""))
     if not (ties or edges):
         raise AssertionError(f"{label}: tokens or counters differ: {out_a} "
                              f"{cnt_a} vs {out_b} {cnt_b}")
@@ -2930,6 +3268,7 @@ def main() -> int:
     if "kernels" in phases:
         kernels = [check_paged_attention(dev), *check_paged_layouts(dev),
                    *check_bitserial(dev)]
+        check_bitserial_offset(dev)
         check_bitserial_shapes(dev)
         kernels += [check_analytic(dev),
                    check_analytic_int8(dev), check_seed_bitserial(dev)]
@@ -2942,6 +3281,9 @@ def main() -> int:
     if "archs" in phases:
         # the architectures' main path adds to the serve phase's counts
         for k, v in phase_archs().items():
+            counts[k] = counts.get(k, 0) + v
+    if "mesh" in phases:
+        for k, v in phase_mesh().items():
             counts[k] = counts.get(k, 0) + v
     if "parity" in phases:
         phase_parity(dev)

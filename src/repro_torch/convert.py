@@ -5,7 +5,9 @@ dicts of arrays, handed over as numpy arrays or anything ``np.asarray``
 accepts) and returns the port's parameter tree: the same nested dict layout,
 with the stacked ``blocks/p{i}/...`` leaves keeping their leading layer axis.
 After conversion both packages compute the same function.  bfloat16 leaves
-(numpy's ``ml_dtypes`` bfloat16) are carried bit for bit.
+(numpy's ``ml_dtypes`` bfloat16) are carried bit for bit.  With a
+``launch.mesh.Mesh`` the tree comes back as this rank's shard
+(``launch.sharding.shard_params``), the input of ``Engine(mesh=)``.
 """
 from __future__ import annotations
 
@@ -24,8 +26,16 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def params_from_jax(tree: Dict[str, Any], device) -> Dict[str, Any]:
-    """The port's parameter tree for a JAX ``init_params`` tree."""
+def params_from_jax(tree: Dict[str, Any], device, cfg=None,
+                    mesh=None) -> Dict[str, Any]:
+    """The port's parameter tree for a JAX ``init_params`` tree; with
+    ``mesh`` (and the port's ``cfg``, whose substrate places the bit-serial
+    row sites) this rank's shard of it."""
+    if mesh is not None:
+        from repro_torch.launch import sharding
+
+        return sharding.shard_params(params_from_jax(tree, device), cfg,
+                                     mesh)
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     return tensor_from_numpy(tree, torch.device(device))

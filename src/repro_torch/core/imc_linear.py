@@ -17,6 +17,13 @@ Noise is driven by integer seeds: ``rng`` is an int (or None, which turns
 analog noise off), and :func:`layer_rng` derives a per-layer seed with the
 counter hash, where the JAX reference folds a layer id into a PRNG key.
 ``cfg`` may be an :class:`IMCConfig` or a ``core.substrate.Substrate``.
+
+Under tensor parallelism (an active ``core.parallel`` shard group) a call
+site marks its projection column- or row-parallel (``split``), and every
+mode keeps the single device's semantics: quantizer ranges and the analytic
+output statistics are taken over the whole tensor, analog noise is the
+slice of the single device's draw, and a bit-serial bank always sees its
+whole dot product.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import parallel
 from repro_torch.core.archs import QSArch
 from repro_torch.kernels import prng
 from repro_torch.kernels.ref import true_div
@@ -143,8 +151,20 @@ def _dynamic_max(v):
     return v.detach().abs().max() + 1e-9
 
 
-def _matmul(x, w):
-    return torch.matmul(x, w)
+def _matmul(x, w, tp=None):
+    """x @ w.  With ``tp`` (a row-parallel site's shard group) each rank's
+    partial sums stay in float32 through the all-reduce and are rounded to
+    x's dtype once, as one device rounds its float32 accumulator once."""
+    if tp is None:
+        return torch.matmul(x, w)
+    if x.dtype in (torch.float32, torch.float64):
+        return tp.sum(torch.matmul(x, w))
+    if x.is_cuda:  # the tensor cores' float32 accumulator, unrounded
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        y = y.reshape(*x.shape[:-1], w.shape[-1])
+    else:
+        y = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+    return tp.sum(y).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -153,23 +173,44 @@ def _matmul(x, w):
 
 
 def linear(w, x, cfg=DIGITAL, rng: Optional[int] = None, bias=None,
-           site: Optional[str] = None):
+           site: Optional[str] = None, split: Optional[str] = None):
     """y = x @ w (+ bias) on the configured execution substrate.
 
     ``w`` is (d_in, d_out), ``x`` (..., d_in).  ``site`` names the compute
     site (``"attn.wq"``, ``"mlp.wi"``, ``"lm_head"``, ...): it selects a
     per-site override and, under a ``frozen`` calibration, the frozen
     quantizer ranges.  ``rng`` is an integer noise seed or None.
+
+    ``split`` marks a tensor-parallel projection; it matters only under an
+    active shard group (``core.parallel.use``).  ``"col"``: ``w`` holds this
+    rank's share of the output columns and ``x`` is whole; the output stays
+    split by columns.  ``"row"``: ``x`` and ``w`` hold this rank's share of
+    the dot-product dimension and the output is whole, summed over the
+    group.  A row site in the group's ``row_columns`` (bit-serial banks)
+    holds output columns instead: its input is gathered, and its output
+    gathered back.
     """
     from repro_torch.core import substrate as substrate_lib
 
     sub = substrate_lib.as_substrate(cfg)
     cfg = sub.site_config(site)
+    tp = parallel.active() if split is not None else None
+    if tp is not None:
+        if bias is not None:
+            raise ValueError("a tensor-parallel linear takes no bias")
+        if split == "row" and site in tp.row_columns:
+            y = linear(w, tp.gather(x), sub, rng, site=site, split="col")
+            return tp.gather(y)
+    row = tp is not None and split == "row"
+    tp_row = tp if row else None
     if cfg.mode == "digital":
-        y = _matmul(x, w)
+        y = _matmul(x, w, tp_row)
         return y if bias is None else y + bias
 
     rec = substrate_lib.active_recorder()
+    if rec is not None and tp is not None:
+        raise ValueError("calibration records whole-tensor statistics: "
+                         "calibrate the unsharded model")
     if rec is not None:
         # calibration pass: record this site's operand ranges, then run the
         # noiseless fakequant proxy (same ranges as the real substrate)
@@ -184,6 +225,9 @@ def linear(w, x, cfg=DIGITAL, rng: Optional[int] = None, bias=None,
     # pre-ADC proxy, the fakequant product for fakequant and analytic and
     # the kernel output for bit-serial, as in the reference
     shadow = substrate_lib.active_shadow_recorder()
+    if shadow is not None and tp is not None:
+        raise ValueError("shadow recording is not sharded: drift monitoring "
+                         "runs on one device")
 
     def _shadow_note(y_obs):
         if shadow is not None:
@@ -192,24 +236,30 @@ def linear(w, x, cfg=DIGITAL, rng: Optional[int] = None, bias=None,
     stats = sub.site_stats(site)  # None => dynamic per-batch statistics
     if stats is None:
         x_max, w_max = _dynamic_max(x), _dynamic_max(w)
+        if tp is not None:  # ranges of the whole tensors
+            w_max = tp.max(w_max)
+            if row:
+                x_max = tp.max(x_max)
     else:
         x_max, w_max = stats.x_max, stats.w_max
 
     if cfg.mode == "fakequant":
         xq = _fq_ste(x, cfg.bx, cfg.x_signed, x_max)
         wq = _fq_ste(w, cfg.bw, True, w_max)
-        y = _matmul(xq, wq)
+        y = _matmul(xq, wq, tp_row)
         _shadow_note(y)
         return y if bias is None else y + bias
 
     if cfg.mode == "imc_analytic":
-        n = x.shape[-1]
+        n = x.shape[-1] * (tp.size if row else 1)
         xq = _fq_ste(x, cfg.bx, cfg.x_signed, x_max)
         wq = _fq_ste(w, cfg.bw, True, w_max)
-        y = _matmul(xq, wq)
+        y = _matmul(xq, wq, tp_row)  # the ADC converts the whole product
         _shadow_note(y)
+        col = tp is not None and not row
         if stats is None:
-            sigma_yo = y.detach().std(unbiased=False) + 1e-9
+            y_all = tp.gather(y.detach()) if col else y.detach()
+            sigma_yo = y_all.std(unbiased=False) + 1e-9
         else:
             sigma_yo = stats.sigma_yo
         snr_a_db = cfg.resolved_snr_a_db(n)
@@ -217,8 +267,13 @@ def linear(w, x, cfg=DIGITAL, rng: Optional[int] = None, bias=None,
         if rng is not None:
             gen = torch.Generator(device=y.device)
             gen.manual_seed(int(rng))
-            y = y + sigma_a * torch.randn(y.shape, generator=gen,
-                                          device=y.device, dtype=y.dtype)
+            m = y.shape[-1]
+            shape = y.shape[:-1] + (m * tp.size if col else m,)
+            z = torch.randn(shape, generator=gen, device=y.device,
+                            dtype=y.dtype)
+            if col:  # this rank's columns of the single device's draw
+                z = z[..., tp.rank * m:(tp.rank + 1) * m]
+            y = y + sigma_a * z
         # MPC output ADC: clip at zeta*sigma, quantize with B_ADC bits (STE)
         b_adc = cfg.resolved_b_adc(n)
         y_c = cfg.y_clip_sigmas * sigma_yo
@@ -228,11 +283,18 @@ def linear(w, x, cfg=DIGITAL, rng: Optional[int] = None, bias=None,
     if cfg.mode == "imc_bitserial":
         from repro_torch.kernels import ops as kops
 
+        if row:  # launch.sharding places bit-serial row sites by columns
+            raise ValueError(f"bit-serial site {site!r} split by rows would "
+                             "split its banks")
         n = x.shape[-1]
         mcfg = kops.matmul_config_from_imc(cfg, n)
         lead = x.shape[:-1]
         x2 = x.reshape(-1, n)
-        y = kops.imc_matmul(x2, w, mcfg, seed=rng, x_max=x_max, w_max=w_max)
+        m = w.shape[-1]
+        cols = ((tp.rank * m, tp.size * m) if tp is not None
+                else (0, m))
+        y = kops.imc_matmul(x2, w, mcfg, seed=rng, x_max=x_max, w_max=w_max,
+                            cols=cols)
         y = y.reshape(*lead, w.shape[-1]).to(x.dtype)
         _shadow_note(y)
         return y if bias is None else y + bias

@@ -32,7 +32,8 @@ _SIGNATURES = {
     "paged_attention": ("paged_attention_decode",
                         [_P] * 10 + [_I] * 14 + [_F, _F, _I, _P]),
     "bitserial": ("imc_bitserial_matmul",
-                  [_P] * 4 + [_I] * 7 + [_F, _I, _F, _F, _I, _U, _F, _P]),
+                  [_P] * 4 + [_I] * 7 + [_F, _I, _F, _F, _I, _U, _F, _I,
+                                         _P]),
     "analytic": ("imc_analytic_matmul",
                  [_P] * 3 + [_I] * 4 + [_U, _F, _I, _F, _F, _F, _P]),
     "analytic_int8": ("imc_analytic_int8_matmul",

@@ -90,6 +90,7 @@ struct Args {
   int has_noise;
   uint32_t seed;
   float sigma;
+  int col0;  // global index of w's first column in the noise sites
 };
 
 template <int MB, bool GAIN>
@@ -235,7 +236,7 @@ __device__ __forceinline__ void pass1(Smem<MB, GAIN>& sm, const Args& a,
       if (a.has_noise) {
         uint32_t hs = prng_absorb(h_bank, code >> 24);
         hs = prng_absorb(hs, (uint32_t)b0 + ((code >> 16) & 255));
-        hs = prng_absorb(hs, (uint32_t)(m0 + col));
+        hs = prng_absorb(hs, (uint32_t)(a.col0 + m0 + col));
         const float z = prng_normal(hs);
         d = fmaxf(__fadd_rn(d, __fmul_rn(a.sigma, z)), 0.0f);
       }
@@ -486,7 +487,7 @@ extern "C" int imc_bitserial_matmul(const void* x, const void* w,
                                     int x_signed, float k_h, int apply_adc,
                                     float adc_delta, float adc_max,
                                     int has_noise, uint32_t seed, float sigma,
-                                    void* stream) {
+                                    int col0, void* stream) {
   if (B == 0 || M == 0) return 0;
   if (bx < 1 || bw < 1 || bx > 8 || bw > 8 || rows < 1 || K < 0)
     return (int)cudaErrorInvalidValue;
@@ -502,7 +503,7 @@ extern "C" int imc_bitserial_matmul(const void* x, const void* w,
     return (int)cudaMemsetAsync(out, 0, (size_t)B * M * sizeof(float), s);
   const Args a{(const uint8_t*)x, (const uint8_t*)w, (const float*)gain,
                (float*)out, B, K, M, rows, bx, bw, x_signed, bt, k_h,
-               apply_adc, adc_delta, adc_max, has_noise, seed, sigma};
+               apply_adc, adc_delta, adc_max, has_noise, seed, sigma, col0};
   const bool small = bw <= 7;
   if (gain != nullptr)
     return small ? launch<7, true>(a, s) : launch<8, true>(a, s);

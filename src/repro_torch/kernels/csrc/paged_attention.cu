@@ -7,6 +7,15 @@
 // fp32 online softmax (running max m, sum l, accumulator acc), optional tanh
 // softcap, GQA groups and the mask  logical_row <= pos.
 //
+// The scatter is a launch of its own (paged_write_kernel), finished before
+// any row is read, and where several slots route their row to the same pool
+// row the highest slot's lands, as in the plain version.  So every slot
+// reads the same bits on every run, inactive ones included: several
+// inactive slots write block 0 at the same offsets and read it back, and a
+// retired slot's stale table may point at a block a live slot writes.  (An
+// inactive row's output feeds the batch-wide quantizer ranges of the IMC
+// substrates, so a race there would reach the live rows.)
+//
 // What bounds it: bytes.  A decode step reads each live K/V row of the slot
 // once (2 * ctx * Hkv * hd * 2 B per slot in bf16) and does ~4 flops per
 // byte, far below the card's ~295 flops/byte balance point.  Design:
@@ -17,8 +26,7 @@
 //    8 heads of 64 bf16).  A group of more query rows per kv head than the
 //    plan's GM (2; granite-20b has 48 on one kv head) takes one launch all
 //    the same: each chunk of GM rows is a CTA of its own on the grid's x
-//    axis, and the chunks' CTAs read the same K/V rows (L2 holds them);
-//    only chunk 0 writes the new row, so the pools are written once.  (The
+//    axis, and the chunks' CTAs read the same K/V rows (L2 holds them).  (The
 //    register state grows with GM: at 4 and 8 it spills, and one chunk of 8
 //    ran 1.4-1.9x slower than four or twenty-four chunks of 2);
 //  * the pool offset of each row of the split is computed once at the start
@@ -49,13 +57,8 @@
 //    loads sat on the critical path.)  A slot with one split writes ctx
 //    itself;
 //  * only rows up to each slot's position are read (a masked row adds p = 0
-//    and a correction of 1, so skipping is exact); only the one new row is
-//    written, not whole blocks; where the new token is attended, each warp
-//    copies its head's slice of it from k_new/v_new over the stage's row in
-//    shared memory, only for active rows, so an inactive row attends the
-//    stale pool value like the gather path.  Writes of several inactive slots
-//    to block 0 may race; block 0 is garbage by contract, so they take no
-//    lock.
+//    and a correction of 1, so skipping is exact); only the one new row of
+//    each slot is written, not whole blocks.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -117,13 +120,50 @@ struct Plan {
   int ring_bytes;  // the stage ring
 };
 
+// the pool row (block * bs + offset) slot r writes: its tail block when it
+// is active and within capacity, garbage block 0 otherwise
+__device__ __forceinline__ int64_t write_row(const int* bt, const int* pos,
+                                            const int* act, int r, int bs,
+                                            int max_blocks) {
+  const int p = pos[r], tail = p / bs;
+  const int dest = (tail >= max_blocks || act[r] == 0)
+                       ? 0
+                       : bt[(size_t)r * max_blocks + tail];
+  return (int64_t)dest * bs + (p - tail * bs);
+}
+
+// the scatter: one CTA per slot copies its new K/V row (all kv heads, a
+// multiple of 16 bytes) into the pools as 16-byte vectors, unless a higher
+// slot writes the same pool row
+template <typename T>
+__global__ void paged_write_kernel(const T* __restrict__ kn,
+                                   const T* __restrict__ vn,
+                                   T* __restrict__ pk, T* __restrict__ pv,
+                                   const int* __restrict__ bt,
+                                   const int* __restrict__ pos,
+                                   const int* __restrict__ act, int b,
+                                   int row_elems, int bs, int max_blocks) {
+  const int s = blockIdx.x;
+  const int64_t at = write_row(bt, pos, act, s, bs, max_blocks);
+  for (int r = s + 1; r < b; ++r)
+    if (write_row(bt, pos, act, r, bs, max_blocks) == at) return;
+  const int n_vec = row_elems * (int)sizeof(T) / 16;
+  const uint4* ks = reinterpret_cast<const uint4*>(kn + (size_t)s * row_elems);
+  const uint4* vs = reinterpret_cast<const uint4*>(vn + (size_t)s * row_elems);
+  uint4* kd = reinterpret_cast<uint4*>(pk + (size_t)at * row_elems);
+  uint4* vd = reinterpret_cast<uint4*>(pv + (size_t)at * row_elems);
+  for (int i = threadIdx.x; i < n_vec; i += blockDim.x) {
+    kd[i] = ks[i];
+    vd[i] = vs[i];
+  }
+}
+
 // LPR lanes per row, NV 16-byte vectors per lane, GM query rows per head
 template <typename T, int LPR, int NV, int GM>
 __global__ void __launch_bounds__(kMaxHeads * 32, 2)
-paged_kernel(const float* __restrict__ q, const T* __restrict__ kn,
-             const T* __restrict__ vn, T* pk, T* pv,
-             const int* __restrict__ bt, const int* __restrict__ pos,
-             const int* __restrict__ act, float* __restrict__ part_ml,
+paged_kernel(const float* __restrict__ q, const T* __restrict__ pk,
+             const T* __restrict__ pv, const int* __restrict__ bt,
+             const int* __restrict__ pos, float* __restrict__ part_ml,
              float* __restrict__ part_acc, float* __restrict__ ctx, int hkv,
              int g, int hd, int bs, int max_blocks, Plan plan, float scale,
              float cap, int use_cap) {
@@ -178,22 +218,8 @@ paged_kernel(const float* __restrict__ q, const T* __restrict__ kn,
     }
   }
 
-  const int p = pos[b];
-  const bool active = act[b] != 0;
-  const int tail = p / bs, off = p - tail * bs;
-  const int limit = min(p + 1, max_blocks * bs);  // rows 0..p, within capacity
+  const int limit = min(pos[b] + 1, max_blocks * bs);  // rows 0..pos
 
-  if (sp == 0 && qc == 0) {
-    // the one new row: the slot's tail block for an active in-range row,
-    // garbage block 0 otherwise (written by one query chunk only)
-    const int dest = (tail >= max_blocks || !active) ? 0 : bt_row[tail];
-    const size_t at = ((size_t)dest * bs + off) * hkv * hd + (size_t)h0 * hd;
-    const size_t from = ((size_t)b * hkv + h0) * hd;
-    for (int i = tid; i < row_elems; i += blockDim.x) {
-      pk[at + i] = kn[from + i];
-      pv[at + i] = vn[from + i];
-    }
-  }
   const int hi = min(lo + plan.split_rows, limit);
   if (lo >= hi) return;  // the whole CTA: no barrier is left waiting
   const int used = (limit + plan.split_rows - 1) / plan.split_rows;
@@ -223,7 +249,6 @@ paged_kernel(const float* __restrict__ q, const T* __restrict__ kn,
     if (s < n_st) fill(s, lo + s * sr);
     cp_async_commit();
   }
-  const size_t fresh_at = ((size_t)b * hkv + h) * hd;
   for (int t = 0; t < n_st; ++t) {
     cp_async_wait_stages();
     // stage t has landed for every thread, and every warp is done with
@@ -236,20 +261,6 @@ paged_kernel(const float* __restrict__ q, const T* __restrict__ kn,
                   (size_t)warp * hd;
     const T* vs = ks + (size_t)sr * row_elems;
     const int r0 = lo + t * sr;
-    if (active && p >= r0 && p < min(r0 + sr, hi)) {
-      // the new token's row, from k_new / v_new: each warp patches its own
-      // head's slice of the stage, so the row reads below stay in shared
-      // memory
-      T* dk = const_cast<T*>(ks) + (size_t)(p - r0) * row_elems;
-      T* dv = dk + (size_t)sr * row_elems;
-      for (int c = lane; c < nvr; c += 32) {  // 16-byte chunks
-        *reinterpret_cast<uint4*>(dk + c * kVec) =
-            *reinterpret_cast<const uint4*>(kn + fresh_at + c * kVec);
-        *reinterpret_cast<uint4*>(dv + c * kVec) =
-            *reinterpret_cast<const uint4*>(vn + fresh_at + c * kVec);
-      }
-      __syncwarp();
-    }
     float kx[kRows][NV][kVec], vx[kRows][NV][kVec];
     bool valid[kRows];
 #pragma unroll
@@ -420,14 +431,19 @@ int launch(const void* q, const void* kn, const void* vn, void* pk, void* pv,
     if (e != cudaSuccess) return (int)e;
     smem_set = smem;
   }
+  paged_write_kernel<T><<<b, 128, 0, stream>>>(
+      (const T*)kn, (const T*)vn, (T*)pk, (T*)pv, (const int*)bt,
+      (const int*)pos, (const int*)act, b, hkv * hd, bs, max_blocks);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
   float* part_ml = (float*)scratch;
   float* part_acc = part_ml + 2 * (size_t)b * hkv * plan.n_splits * g;
   dim3 grid(hkv / plan.heads * ((g + GM - 1) / GM), b, plan.n_splits);
   kern<<<grid, plan.heads * 32, smem, stream>>>(
-      (const float*)q, (const T*)kn, (const T*)vn, (T*)pk, (T*)pv,
-      (const int*)bt, (const int*)pos, (const int*)act, part_ml, part_acc,
-      (float*)ctx, hkv, g, hd, bs, max_blocks, plan, scale, cap, use_cap);
-  cudaError_t e = cudaGetLastError();
+      (const float*)q, (const T*)pk, (const T*)pv, (const int*)bt,
+      (const int*)pos, part_ml, part_acc, (float*)ctx, hkv, g, hd, bs,
+      max_blocks, plan, scale, cap, use_cap);
+  e = cudaGetLastError();
   if (e != cudaSuccess || plan.n_splits == 1) return (int)e;
   const int threads = g * hd < 256 ? (g * hd + 31) / 32 * 32 : 256;
   paged_combine_kernel<<<dim3(hkv, b), threads, 0, stream>>>(

@@ -105,11 +105,12 @@ def kernel_layout(x, w, w_gain, rows: int):
 
 
 def bitserial_c_args(x8, w8, gain, out, spec: BitSerialSpec, rows: int,
-                     seed: Optional[int] = None):
+                     seed: Optional[int] = None, col0: int = 0):
     """The arguments of the C entry point ``imc_bitserial_matmul`` for
     operands already in the kernel's layout (``kernel_layout``: uint8 codes,
     a dense float32 gain or None, ``rows`` the padded bank height), on the
-    current stream."""
+    current stream; ``col0`` is the global index of ``w8``'s first column
+    in the noise sites."""
     b_sz, kp = x8.shape
     has_noise = seed is not None and spec.sigma_noise > 0.0
     return (x8.data_ptr(), w8.data_ptr(),
@@ -120,13 +121,14 @@ def bitserial_c_args(x8, w8, gain, out, spec: BitSerialSpec, rows: int,
             ctypes.c_float(spec.v_c / (2.0**spec.b_adc)),
             ctypes.c_float(2.0**spec.b_adc - 1), int(has_noise),
             ctypes.c_uint32(int(seed or 0) & 0xFFFFFFFF),
-            ctypes.c_float(spec.sigma_noise),
+            ctypes.c_float(spec.sigma_noise), int(col0),
             torch.cuda.current_stream(x8.device).cuda_stream)
 
 
 def bitserial_cuda(x_codes, w_codes, w_gain, spec: BitSerialSpec,
-                   seed: Optional[int] = None):
-    """Launch the CUDA bit-serial kernel; returns (B, M) f32 in code units."""
+                   seed: Optional[int] = None, col0: int = 0):
+    """Launch the CUDA bit-serial kernel; returns (B, M) f32 in code units.
+    ``col0`` offsets the column of every noise site."""
     dev = x_codes.device
     if dev.type != "cuda" or w_codes.device != dev:
         raise ValueError("bitserial_cuda needs both operands on one CUDA "
@@ -154,7 +156,7 @@ def bitserial_cuda(x_codes, w_codes, w_gain, spec: BitSerialSpec,
     mp = w8.shape[1]
     out = torch.empty((b_sz, mp), dtype=torch.float32, device=dev)
     err = build.library("bitserial").imc_bitserial_matmul(
-        *bitserial_c_args(x8, w8, gain, out, spec, rows, seed))
+        *bitserial_c_args(x8, w8, gain, out, spec, rows, seed, col0))
     if err != 0:
         raise build.launch_failed("bitserial", err)
     bitserial_cuda.launches += 1
@@ -168,18 +170,20 @@ bitserial_cuda.gain_launches = 0
 
 
 def imc_bitserial_matmul(x_codes, w_codes, w_gain, spec: BitSerialSpec,
-                         seed: Optional[int] = None):
+                         seed: Optional[int] = None, col0: int = 0):
     """Bit-serial IMC matmul of integer codes ``(B, K) @ (K, M)``; returns
     ``(B, M)`` f32 in code units.  ``seed`` (an int) enables the per-plane
     temporal noise of ``spec.sigma_noise`` counts; ``w_gain`` the per-cell
-    mismatch gain.  CPU tensors take the plain version, CUDA tensors the
-    kernel."""
+    mismatch gain.  ``col0`` is the global index of ``w_codes``' first
+    column in the noise sites (a shard of a weight split by columns).  CPU
+    tensors take the plain version, CUDA tensors the kernel."""
     if x_codes.device.type == "cpu":
         return ref.imc_bitserial_ref(x_codes, w_codes, w_gain, spec,
-                                     seed=seed)
+                                     seed=seed, col0=col0)
     if x_codes.device.type != "cuda":
         raise ValueError(f"no bit-serial kernel for device {x_codes.device}")
-    return bitserial_cuda(x_codes, w_codes, w_gain, spec, seed=seed)
+    return bitserial_cuda(x_codes, w_codes, w_gain, spec, seed=seed,
+                          col0=col0)
 
 
 def analytic_cuda(x, w_codes, spec: AnalyticSpec, seed: Optional[int] = None):

@@ -95,7 +95,7 @@ def _dynamic_max(v):
 
 
 def imc_matmul(x, w, cfg: IMCMatmulConfig, seed: Optional[int] = None,
-               x_max=None, w_max=None, sigma_yo=None):
+               x_max=None, w_max=None, sigma_yo=None, cols=None):
     """IMC-simulated ``y = x @ w`` in real units, for ``x`` (B, K) and ``w``
     (K, M).
 
@@ -110,6 +110,12 @@ def imc_matmul(x, w, cfg: IMCMatmulConfig, seed: Optional[int] = None,
     ``sigma_yo`` (analytic mode) is the output std in CODE units that scales
     the folded noise and the MPC clip; it defaults to the std of the first
     <= 8 rows' ideal code product, a per-batch statistic.
+
+    ``cols = (start, total)`` (bit-serial mode) says that ``w`` holds the
+    columns ``[start, start + M)`` of a ``(K, total)`` weight split by
+    columns over a tensor-parallel group: the mismatch gain is that slice
+    of the whole weight's draw and the kernel's noise sites are the whole
+    weight's columns, so the shards together equal the whole call.
     """
     if x_max is None:
         x_max = _dynamic_max(x)
@@ -154,6 +160,7 @@ def imc_matmul(x, w, cfg: IMCMatmulConfig, seed: Optional[int] = None,
             k_h=cfg.k_h_counts, v_c=cfg.v_c_counts, x_signed=cfg.x_signed,
             apply_adc=True, sigma_noise=cfg.sigma_thermal_counts)
         k, m = w.shape
+        col0, m_total = (0, m) if cols is None else cols
         w_gain = None
         noise_seed = None
         if seed is not None:
@@ -163,12 +170,14 @@ def imc_matmul(x, w, cfg: IMCMatmulConfig, seed: Optional[int] = None,
                 gen = torch.Generator(device=x.device)
                 gen.manual_seed(prng.derive_seed(seed, 0))
                 w_gain = 1.0 + cfg.sigma_d * torch.randn(
-                    (k, m), generator=gen, device=x.device,
+                    (k, m_total), generator=gen, device=x.device,
                     dtype=torch.float32)
+                if m_total != m:
+                    w_gain = w_gain[:, col0:col0 + m]
             if cfg.sigma_thermal_counts > 0.0:
                 noise_seed = prng.derive_seed(seed, 1)
         y = imc_mvm.imc_bitserial_matmul(xc, wc, w_gain, spec,
-                                         seed=noise_seed)
+                                         seed=noise_seed, col0=col0)
         return y * (dx * dw)
 
     raise ValueError(f"unknown mode {cfg.mode!r}")

@@ -13,7 +13,12 @@ for the plain walk, the gather path and the CUDA kernel): the write goes to
 the slot's tail block only for an ACTIVE row whose position is in range;
 inactive rows (a retired slot's stale table may point at reused blocks) and
 OVERRUN rows (``pos >= max_blocks * block_size``) write to block 0.  An
-inactive row attends the stale tail value, as the gather path does.
+inactive row attends the stale tail value, as the gather path does.  Every
+new row is written before any row is read, and where several slots route to
+the same pool row (inactive slots at one offset of block 0, or a retired
+slot's stale table), the highest slot's row lands (``scatter_new_rows``):
+an inactive row's output is the same on every run, which matters because
+it enters the batch-wide quantizer ranges of the IMC substrates.
 
 Dispatch (``paged_attention_decode``): tensors on the CPU take the plain
 streamed walk ``decode_plain``; CUDA tensors launch the hand-written kernel in
@@ -50,6 +55,20 @@ def write_routing(bt, pos_b, block_size: int, active=None
     return dest, torch.remainder(pos_b, block_size)
 
 
+def scatter_new_rows(pk, pv, k_new, v_new, dest, off):
+    """Write each slot's new K/V row (all kv heads) at pool row ``(dest,
+    off)``, in place; where several slots share a destination the highest
+    slot's row lands: every slot writing there writes that row, so the
+    result does not depend on the order of the writes (and no shape
+    depends on the data, so a CUDA graph can capture it)."""
+    key = dest * pk.shape[1] + off
+    rows = torch.arange(key.shape[0], device=key.device)
+    same = key[None, :] == key[:, None]
+    last = torch.where(same, rows[None, :], -1).amax(dim=1)
+    pk[dest, off] = k_new[last].to(pk.dtype)
+    pv[dest, off] = v_new[last].to(pv.dtype)
+
+
 def decode_plain(q, k_new, v_new, pk, pv, bt, pos_b, active=None, *,
                  scale: float, softcap: Optional[float] = None):
     """The plain streamed walk: scatter the new K/V, then fold one
@@ -58,11 +77,8 @@ def decode_plain(q, k_new, v_new, pk, pv, bt, pos_b, active=None, *,
     b, max_blocks = bt.shape
     bs = pk.shape[1]
     pos_b = pos_b.to(torch.int64)
-    k_new = k_new.to(pk.dtype)
-    v_new = v_new.to(pv.dtype)
     dest, off = write_routing(bt, pos_b, bs, active)
-    pk[dest, off] = k_new
-    pv[dest, off] = v_new
+    scatter_new_rows(pk, pv, k_new, v_new, dest, off)
     qf = q.to(torch.float32)
     hkv, g, hd = q.shape[1], q.shape[2], q.shape[3]
     m = torch.full((b, hkv, g), NEG_INF, dtype=torch.float32, device=q.device)

@@ -106,12 +106,13 @@ def mpc_adc(v, b_adc: int, y_clip):
 
 
 def bitserial_bank_noise(seed, bank: int, n_planes: int, b_sz: int, m: int,
-                         device=None):
+                         device=None, col0: int = 0):
     """The (n_planes, B, M) standard-normal draws of ``bank``, at the same
-    counter sites as the kernel (plane index p = i*Bx + j)."""
+    counter sites as the kernel (plane index p = i*Bx + j; columns from
+    ``col0``)."""
     p_idx = torch.arange(n_planes, device=device)[:, None, None]
     b_idx = torch.arange(b_sz, device=device)[None, :, None]
-    m_idx = torch.arange(m, device=device)[None, None, :]
+    m_idx = torch.arange(col0, col0 + m, device=device)[None, None, :]
     return prng.counter_normal(seed, prng.TAG_BITSERIAL, bank, p_idx, b_idx,
                                m_idx)
 
@@ -122,13 +123,15 @@ def bitserial_bank_noise(seed, bank: int, n_planes: int, b_sz: int, m: int,
 
 
 def imc_bitserial_ref(x_codes, w_codes, w_gain, spec: BitSerialSpec,
-                      seed: Optional[int] = None):
+                      seed: Optional[int] = None, col0: int = 0):
     """Recombined integer-code DP (B, M) in code units.
 
     ``w_gain`` (K, M) is the spatial per-cell current gain (paper eq. 18),
     shared by every bit plane of a cell; ``seed`` enables per-plane temporal
-    noise of std ``spec.sigma_noise`` counts from the counter hash.  With a
-    gain the plane sums are taken in float64 and rounded once to float32.
+    noise of std ``spec.sigma_noise`` counts from the counter hash, at the
+    columns ``col0 + m`` (a shard of a weight split by columns draws the
+    whole weight's noise).  With a gain the plane sums are taken in float64
+    and rounded once to float32.
     """
     b_sz, k = x_codes.shape
     k2, m = w_codes.shape
@@ -155,7 +158,8 @@ def imc_bitserial_ref(x_codes, w_codes, w_gain, spec: BitSerialSpec,
         z_bank = None
         if has_noise:
             z_bank = bitserial_bank_noise(seed, bank, spec.bw * spec.bx,
-                                          b_sz, m, device=x_codes.device)
+                                          b_sz, m, device=x_codes.device,
+                                          col0=col0)
         xplanes = [unpack_plane(xb, j, spec.bx, signed=spec.x_signed)
                    for j in range(spec.bx)]
         for i in range(spec.bw):
@@ -229,14 +233,14 @@ def paged_attention_ref(q, k_new, v_new, pk, pv, bt, pos_b, active=None, *,
     from ``paged_attention.write_routing``), gathers ``pool[bt]`` and runs a
     full-row softmax.  Returns ``(ctx (B, Hkv, G, hd) f32, pk, pv)``.
     """
-    from repro_torch.kernels.paged_attention import write_routing
+    from repro_torch.kernels.paged_attention import (scatter_new_rows,
+                                                     write_routing)
 
     b, max_blocks = bt.shape
     bs, hkv, hd = pk.shape[1], pk.shape[2], pk.shape[3]
     pos_b = pos_b.to(torch.int64)
     dest, off = write_routing(bt, pos_b, bs, active)
-    pk[dest, off] = k_new.to(pk.dtype)
-    pv[dest, off] = v_new.to(pv.dtype)
+    scatter_new_rows(pk, pv, k_new, v_new, dest, off)
     s_kv = max_blocks * bs
     bt_l = bt.to(torch.int64)
     k = pk[bt_l].reshape(b, s_kv, hkv, hd).to(torch.float32)

@@ -80,17 +80,34 @@ Engine design (the PyTorch counterpart of ``repro.launch.serve.Engine``):
                        requests in flight.  Kernel launch or build failures
                        are not transient: they propagate.
 
+  tensor parallelism   with ``mesh=`` (a ``launch.mesh.Mesh`` of shape
+                       (1, N)) each rank runs this engine on its shard of
+                       the weights (``launch.sharding``): heads, d_ff,
+                       vocabulary and experts split over the ranks, with
+                       explicit collectives (``core.parallel``).  The paged
+                       pools are head-sharded when N divides Hkv and
+                       replicated otherwise; block tables and the allocator
+                       stay whole on every rank, and the paged-attention
+                       kernel runs per rank at the local layout.  Every rank
+                       runs the same host loop on the same gathered logits,
+                       so every scheduling decision agrees.  Drift
+                       monitoring, fault retries, R > 1 and recurrent
+                       patterns raise under a mesh of N > 1.
+
 Greedy sampling.  Noise seeds are integers (``rng``); with a frozen
 calibration and ``rng=None`` the batched engine equals sequential execution,
-and a warm admission equals a cold one.  Tensor-parallel meshes are not
-ported yet: ``--mesh`` raises.
+a warm admission equals a cold one, and a (1, N) mesh gives the tokens of
+one device.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
+import io
 import logging
+import os
+import sys
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -98,8 +115,11 @@ import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.core import parallel
 from repro_torch.core import substrate as substrate_lib
 from repro_torch.kernels import prng
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import sharding
 from repro_torch.models import (
     decode_step,
     init_paged_cache,
@@ -299,7 +319,10 @@ class Engine:
     info)`` is called right before the device work of a prefill
     (``"prefill"``, the rids) or a decode chunk (``"decode"``, the chunk
     index); raising there simulates a device error.  ``prefix_cache``
-    enables prefix-sharing admission.
+    enables prefix-sharing admission.  ``mesh`` (a ``launch.mesh.Mesh``)
+    serves tensor-parallel: ``params`` is then this rank's shard
+    (``launch.sharding.shard_params`` or ``launch.sharding.init_params``),
+    and every rank of the mesh must drive its engine with the same calls.
     """
 
     def __init__(self, cfg, params, batch_slots: int, cache_len: int,
@@ -310,9 +333,18 @@ class Engine:
                  drift_monitor=None,
                  failure_injector: Optional[Callable[[str, Any], None]] = None,
                  drift_pause_depth: Optional[int] = None,
-                 prefix_cache: bool = False):
+                 prefix_cache: bool = False, mesh=None):
         if alloc_policy not in ("lazy", "reserve"):
             raise ValueError(f"unknown alloc_policy {alloc_policy!r}")
+        self.mesh = mesh
+        self.tp = mesh_lib.axis_size(mesh, "model") if mesh else 1
+        self.group = None  # the shard group, when tp > 1
+        if mesh is not None:
+            self._check_mesh(cfg, mesh, drift_monitor, failure_injector)
+        if self.tp > 1:
+            self.group = sharding.shard_group(cfg, mesh)
+        # head-sharded pools (else replicated, or one device's)
+        self.kv_shard = self.group is not None and self.group.kv_shard
         self.cfg = cfg
         self.params = params
         self.device = params["embed"].device
@@ -381,8 +413,10 @@ class Engine:
         self._slot_seq: List[int] = [0] * batch_slots
         self._admit_seq = 0
         self.preempted: List[Request] = []
-        cache = init_paged_cache(cfg, batch_slots, self.cache_len, kv_blocks,
-                                 block_size, device=self.device)
+        with parallel.use(self.group):  # this rank's KV heads
+            cache = init_paged_cache(cfg, batch_slots, self.cache_len,
+                                     kv_blocks, block_size,
+                                     device=self.device)
         cache.pop("pos")
         self.cache = cache
         # every layer group's cache with a leading layer axis: the pattern
@@ -390,7 +424,9 @@ class Engine:
         self._groups = list(cache["blocks"].values()) + [
             tree_map(lambda t: t[None], c)
             for c in cache.get("tail", {}).values()]
+        # this rank's pools; head-sharded pools hold 1/tp of the whole
         self._block_bytes, self._fixed_kv_bytes = self._kv_accounting()
+        self._kv_ranks = self.tp if self.kv_shard else 1
         if self.prefix is not None and self._fixed_kv_bytes > 0:
             # a contiguous ring or recurrent leaf: part of the per-request
             # state is not addressable through block tables
@@ -416,6 +452,66 @@ class Engine:
         # pool-utilization accounting, sampled once per decode chunk
         self._util_token_sum = 0
         self._util_cap_sum = 0
+        if meter is not None and mesh is not None:
+            meter.note_mesh(self.mesh_shape, mesh.size,
+                            self.kv_pool_bytes_per_device())
+
+    # -- tensor parallelism ---------------------------------------------------
+    @staticmethod
+    def _check_mesh(cfg, mesh, drift_monitor, failure_injector):
+        """Refuse what this port does not shard yet (ROADMAP)."""
+        if mesh.data != 1:
+            raise ValueError(f"a {mesh.data}x{mesh.model} mesh shards slots "
+                             "over data replicas, which is not served yet: "
+                             "use a 1xN mesh")
+        if mesh.rank < 0:
+            raise ValueError("this rank is not in the mesh")
+        tp = mesh.model
+        if tp == 1:
+            return
+        kinds = set(cfg.pattern) | set(cfg.tail_kinds)
+        if not kinds <= {"attn", "local"}:
+            raise ValueError(f"pattern {sorted(kinds)}: SSD and RG-LRU "
+                             "blocks are not tensor-parallel yet")
+        if cfg.n_heads % tp:
+            raise ValueError(f"{cfg.n_heads} query heads do not divide over "
+                             f"{tp} ranks")
+        if sharding.kv_sharded(cfg, tp):
+            # contiguous per-rank head ranges; raises on uneven splits
+            sharding.kv_head_partition(cfg.n_kv_heads, tp)
+        else:
+            log.info("KV pools replicated: %d KV heads do not divide the "
+                     "%d-way model axis", cfg.n_kv_heads, tp)
+        if drift_monitor is not None:
+            raise ValueError("drift monitoring reads per-rank statistics: "
+                             "not served under a mesh yet")
+        if failure_injector is not None:
+            raise ValueError("fault retries are per rank: not served under a "
+                             "mesh yet")
+
+    @property
+    def mesh_shape(self) -> Optional[str]:
+        """The mesh as an ``RxC`` string ("1x4"), None when single-device."""
+        if self.mesh is None:
+            return None
+        return f"{self.mesh.data}x{self.mesh.model}"
+
+    def _retried(self, fn, describe: str):
+        """``fn()``, retried once on a transient device error.  Under a mesh
+        a retry on one rank alone would leave the others waiting in a
+        collective, so the error propagates there."""
+        if self.group is not None:
+            try:
+                return fn()
+            except Exception as e:
+                if fault_lib.is_transient_device_error(e):
+                    raise RuntimeError(f"{describe} failed on rank "
+                                       f"{self.group.rank}: a device error "
+                                       "is not retried under a mesh") from e
+                raise
+        return fault_lib.call_with_retries(
+            fn, 1, retryable=fault_lib.is_transient_device_error,
+            describe=describe, logger=log)
 
     # -- bookkeeping ----------------------------------------------------------
     def _paged_layers(self):
@@ -444,7 +540,13 @@ class Engine:
 
     def kv_pool_bytes(self) -> int:
         """Bytes of the whole KV cache: every physical block plus the
-        rings and recurrent states."""
+        rings and recurrent states (over every rank of a head-sharded
+        mesh)."""
+        return self.kv_pool_bytes_per_device() * self._kv_ranks
+
+    def kv_pool_bytes_per_device(self) -> int:
+        """Bytes of the KV cache on this rank's device: head-sharded pools
+        and rings carry 1/tp of the whole, replicated ones all of it."""
         return (self._fixed_kv_bytes
                 + self.alloc.num_blocks * self._block_bytes)
 
@@ -626,7 +728,7 @@ class Engine:
         def run_pf():
             if self.failure_injector is not None:
                 self.failure_injector("prefill", rids)
-            with self._shadow(shadow):
+            with self._shadow(shadow), parallel.use(self.group):
                 logits, cache1 = prefill(
                     self.params, self.cfg, torch.as_tensor(toks, device=dev),
                     cache_len=bucket, rng=self._next_key(),
@@ -635,9 +737,8 @@ class Engine:
             return torch.argmax(logits[:, -1], dim=-1), cache1
 
         try:
-            tok0, cache1 = fault_lib.call_with_retries(
-                run_pf, 1, retryable=fault_lib.is_transient_device_error,
-                describe=f"prefill group rids={list(rids)}", logger=log)
+            tok0, cache1 = self._retried(
+                run_pf, f"prefill group rids={list(rids)}")
         except Exception as e:
             if not fault_lib.is_transient_device_error(e):
                 raise  # kernel and programming faults surface
@@ -914,9 +1015,8 @@ class Engine:
                                       self._next_key())
 
         try:
-            last_token, pos, tok0 = fault_lib.call_with_retries(
-                run_warm, 1, retryable=fault_lib.is_transient_device_error,
-                describe=f"warm prefill rid={req.rid}", logger=log)
+            last_token, pos, tok0 = self._retried(
+                run_warm, f"warm prefill rid={req.rid}")
         except Exception as e:
             if not fault_lib.is_transient_device_error(e):
                 raise
@@ -983,9 +1083,10 @@ class Engine:
         pos[slot] = start
         for t in range(len(suffix)):
             k = None if key is None else prng.derive_seed(key, t)
-            logits, _ = decode_step(self.params, self.cfg, fed[t],
-                                    dict(self.cache, pos=pos), rng=k,
-                                    active=active)
+            with parallel.use(self.group):
+                logits, _ = decode_step(self.params, self.cfg, fed[t],
+                                        dict(self.cache, pos=pos), rng=k,
+                                        active=active)
             pos = torch.where(active, pos + 1, pos)
         tok0 = torch.argmax(logits[slot, 0], dim=-1)
         last_token = self.last_token.clone()
@@ -1047,6 +1148,11 @@ class Engine:
         sub = substrate_lib.as_substrate(substrate)
         if self.substrate.policy == "frozen":
             sub = sub.frozen(self.substrate.calibration)
+        if (self.group is not None and sharding.row_sites_by_columns(
+                self.cfg.replace(imc=sub)) != self.group.row_columns):
+            raise ValueError("the incoming substrate moves a row-parallel "
+                             "site on or off the bit-serial path, which "
+                             "would re-place its weights across the mesh")
         old = self.substrate
         self.substrate = sub
         self.cfg = self.cfg.replace(imc=sub)
@@ -1100,9 +1206,10 @@ class Engine:
         toks = []
         for t in range(n_steps):
             k = None if key is None else prng.derive_seed(key, t)
-            logits, _ = decode_step(self.params, self.cfg, tok,
-                                    dict(self.cache, pos=pos), rng=k,
-                                    active=active)
+            with parallel.use(self.group):
+                logits, _ = decode_step(self.params, self.cfg, tok,
+                                        dict(self.cache, pos=pos), rng=k,
+                                        active=active)
             nxt = torch.argmax(logits[:, 0], dim=-1)
             tok = torch.where(active, nxt, tok)
             pos = torch.where(active, pos + 1, pos)
@@ -1180,9 +1287,8 @@ class Engine:
                 raise
 
         try:
-            block = fault_lib.call_with_retries(
-                run_chunk, 1, retryable=fault_lib.is_transient_device_error,
-                describe=f"decode chunk {self.decode_calls}", logger=log)
+            block = self._retried(run_chunk,
+                                  f"decode chunk {self.decode_calls}")
         except Exception as e:
             if not fault_lib.is_transient_device_error(e):
                 raise  # kernel and programming faults surface
@@ -1332,19 +1438,6 @@ def serve_workload(engine: Engine, wcfg, policy: str = "fifo",
     return finished, summary
 
 
-class _Waits(argparse.Action):
-    """A reference flag whose feature is not ported yet."""
-
-    def __init__(self, option_strings, dest, **kw):
-        kw.setdefault("nargs", "?")
-        super().__init__(option_strings, dest, **kw)
-
-    def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f"{option_string} is not ported to PyTorch yet (see "
-                     "ROADMAP: tensor-parallel serving comes in a later "
-                     "slice)")
-
-
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
     ap.add_argument("--arch", required=True, choices=list(configs.ARCH_NAMES))
@@ -1450,8 +1543,30 @@ def build_parser() -> argparse.ArgumentParser:
                          "per distinct shared prefix within each class")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the parameters, prompts and noise")
-    ap.add_argument("--mesh", action=_Waits, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh", default=None, metavar="RxC",
+                    help="serve over a (data, model) mesh of ranks, e.g. "
+                         "1x4: tensor-parallel weights and head-sharded "
+                         "paged KV.  The CLI starts the ranks itself: one "
+                         "per card over NCCL, or with --device cpu one "
+                         "process per rank over gloo; rank 0 prints the "
+                         "report.  Only R = 1 is served")
     return ap
+
+
+def _mesh_rank(argv, size: int):
+    """One rank of a ``--mesh`` run: ``main(argv)`` inside the group, with
+    rank 0's output only and an equal share of the CPU's threads."""
+    rank = mesh_lib.world()[0]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // size))
+    try:
+        if rank == 0:
+            return main(argv)
+        logging.getLogger().setLevel(logging.WARNING)
+        with contextlib.redirect_stdout(io.StringIO()):
+            main(argv)
+    finally:
+        torch.set_num_threads(threads)
 
 
 def main(argv=None) -> dict:
@@ -1466,6 +1581,26 @@ def main(argv=None) -> dict:
     ap = build_parser()
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    mesh = None
+    if args.mesh:
+        try:
+            data, model = mesh_lib.parse_mesh_shape(args.mesh)
+        except ValueError as e:
+            ap.error(str(e))
+        if data != 1:
+            ap.error(f"--mesh {args.mesh}: R > 1 (slots sharded over data "
+                     "replicas) is not served yet; use 1xN")
+        if not mesh_lib.world_running():
+            # start the ranks: this process is rank 0
+            cuda = resolve_device(args.device).type == "cuda"
+            have = torch.cuda.device_count() if cuda else os.cpu_count()
+            if model > have:
+                ap.error(f"mesh {args.mesh} needs {model} devices; only "
+                         f"{have} available")
+            return mesh_lib.launch(model, "nccl" if cuda else "gloo",
+                                   _mesh_rank, list(argv or sys.argv[1:]),
+                                   model)
+        mesh = mesh_lib.make_serve_mesh(data, model)
     base_pt = None
     if args.degrade:
         if not (args.imc_mode == "imc_analytic"
@@ -1477,6 +1612,9 @@ def main(argv=None) -> dict:
 
         base_pt = optimize(n=512, snr_t_target_db=26.0, kinds=("qr",))
     device = resolve_device(args.device)
+    if mesh is not None and device.type == "cuda":
+        device = torch.device("cuda", mesh.rank)  # one card per rank
+        torch.cuda.set_device(device)
 
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
     cfg = cfg.replace(decode_attn=args.decode_attn)
@@ -1497,7 +1635,13 @@ def main(argv=None) -> dict:
     if device.type == "cuda":
         base = torch.cuda.memory_allocated(device)
         torch.cuda.reset_peak_memory_stats(device)
-    params = init_params(cfg, seed=args.seed, device=device)
+    frozen = bool(args.imc_mode) and args.imc_policy == "frozen"
+    if mesh is not None and not frozen:
+        # this rank's shard, drawn without the whole model
+        params = sharding.init_params(cfg, mesh, seed=args.seed,
+                                      device=device)
+    else:
+        params = init_params(cfg, seed=args.seed, device=device)
     weight_bytes = param_bytes(params)
     # the peak above what was allocated before: the weights plus init's
     # transients
@@ -1516,6 +1660,10 @@ def main(argv=None) -> dict:
         log.info("froze substrate calibration on a %s reference batch "
                  "(%d sites)", ref.shape,
                  len(cfg.imc.calibration.site_names()))
+        if mesh is not None:
+            # calibrated on the whole model; each rank keeps its shard
+            params = sharding.shard_params(params, cfg, mesh)
+            weight_bytes = param_bytes(params)
     bucketable = not needs_exact_prefill(cfg)
     max_bucket = max(prefill_bucket(n + args.shared_prefix_len, bucketable,
                                     10**9) for n in lens)
@@ -1548,7 +1696,7 @@ def main(argv=None) -> dict:
                     alloc_policy=args.alloc, clock=clock,
                     drift_monitor=monitor,
                     drift_pause_depth=args.drift_pause_depth,
-                    prefix_cache=args.prefix_cache)
+                    prefix_cache=args.prefix_cache, mesh=mesh)
     summary = None
     t0 = time.perf_counter()
     if args.workload != "none":

@@ -21,6 +21,7 @@ import torch
 from repro_torch.core.imc_linear import DIGITAL, IMCConfig, linear
 from repro_torch.kernels.paged_attention import (
     paged_attention_decode,
+    scatter_new_rows,
     write_routing,
 )
 from repro_torch.kernels.ref import NEG_INF
@@ -51,17 +52,24 @@ class AttnDims(NamedTuple):
     # paged decode: True takes the paged-attention kernel, False the gather
     # escape hatch (cfg.decode_attn="gather")
     paged_kernel: bool = True
+    # tensor parallelism with replicated K/V (Hkv does not divide the model
+    # axis): n_heads is this rank's query heads, n_kv every KV head, and
+    # the rank's query heads all attend to KV head ``kv_head``
+    kv_head: Optional[int] = None
 
 
 def _project_qkv(params, x, dims: AttnDims, positions, imc, rng,
                  site_prefix: str = "attn"):
+    """Q of this rank's query heads and K/V of the heads it holds (column
+    splits under tensor parallelism; K/V whole when replicated)."""
     b, s, _ = x.shape
-    q = linear(params["wq"], x, imc, rng, site=f"{site_prefix}.wq").reshape(
-        b, s, dims.n_heads, dims.head_dim)
-    k = linear(params["wk"], x, imc, rng, site=f"{site_prefix}.wk").reshape(
-        b, s, dims.n_kv, dims.head_dim)
-    v = linear(params["wv"], x, imc, rng, site=f"{site_prefix}.wv").reshape(
-        b, s, dims.n_kv, dims.head_dim)
+    kv_split = "col" if dims.kv_head is None else None
+    q = linear(params["wq"], x, imc, rng, site=f"{site_prefix}.wq",
+               split="col").reshape(b, s, dims.n_heads, dims.head_dim)
+    k = linear(params["wk"], x, imc, rng, site=f"{site_prefix}.wk",
+               split=kv_split).reshape(b, s, dims.n_kv, dims.head_dim)
+    v = linear(params["wv"], x, imc, rng, site=f"{site_prefix}.wv",
+               split=kv_split).reshape(b, s, dims.n_kv, dims.head_dim)
     if dims.use_rope:
         q = rope(q, positions, dims.rope_theta)
         k = rope(k, positions, dims.rope_theta)
@@ -166,10 +174,20 @@ def banded_attention(q, k, v, dims: AttnDims):
     return out.reshape(b, n_q * qb, hq, hd)[:, :s].to(q.dtype)
 
 
+def attended_kv(k, v, dims: AttnDims):
+    """The K/V heads this rank's query heads attend to: all it holds, or,
+    with replicated K/V, the one KV head of its query heads (B, S, 1, hd)."""
+    if dims.kv_head is None:
+        return k, v
+    h = slice(dims.kv_head, dims.kv_head + 1)
+    return k[:, :, h], v[:, :, h]
+
+
 def prefill_attention(q, k, v, dims: AttnDims):
     """The full-sequence dispatch of the reference's ``attention_forward``:
     banded when the window is shorter than the sequence, otherwise flash
     with the window dropped (it would cover every causal pair)."""
+    k, v = attended_kv(k, v, dims)
     if dims.window is not None and dims.window < q.shape[1]:
         return banded_attention(q, k, v, dims)
     return flash_attention(q, k, v, dims._replace(window=None))
@@ -213,7 +231,8 @@ def _attend(q, k, v, valid, dims: AttnDims):
     (B, Skv) validity mask, as a full-row softmax; shared by the contiguous
     caches and the paged gather path.  Returns ctx (B, Hkv, G, hd) f32."""
     b = q.shape[0]
-    hq, hkv, hd = dims.n_heads, dims.n_kv, dims.head_dim
+    k, v = attended_kv(k, v, dims)
+    hq, hkv, hd = dims.n_heads, k.shape[2], dims.head_dim
     qg = q.reshape(b, hkv, hq // hkv, hd)
     s = torch.einsum("bhgd,bkhd->bhgk", qg.to(torch.float32),
                      k.to(torch.float32)) * dims.scale
@@ -235,14 +254,21 @@ def _decode_paged(q, k_new, v_new, cache, pos_b, dims: AttnDims, active):
     b = q.shape[0]
     hq, hkv, hd = dims.n_heads, dims.n_kv, dims.head_dim
     if dims.paged_kernel:
+        if dims.kv_head is None:
+            qk = q.reshape(b, hkv, hq // hkv, hd)
+        else:
+            # replicated pools: every KV head's row is written; the query
+            # heads sit at their KV head, zeros (discarded) at the others
+            qk = q.new_zeros((b, hkv, hq, hd))
+            qk[:, dims.kv_head] = q.reshape(b, hq, hd)
         ctx, _, _ = paged_attention_decode(
-            q.reshape(b, hkv, hq // hkv, hd), k_new[:, 0], v_new[:, 0], pk,
-            pv, bt, pos_b, active, scale=dims.scale,
-            softcap=dims.softcap_val)
+            qk, k_new[:, 0], v_new[:, 0], pk, pv, bt, pos_b, active,
+            scale=dims.scale, softcap=dims.softcap_val)
+        if dims.kv_head is not None:
+            ctx = ctx[:, dims.kv_head:dims.kv_head + 1]
         return ctx
     dest, off = write_routing(bt, pos_b, pk.shape[1], active)
-    pk[dest, off] = k_new[:, 0].to(pk.dtype)
-    pv[dest, off] = v_new[:, 0].to(pv.dtype)
+    scatter_new_rows(pk, pv, k_new[:, 0], v_new[:, 0], dest, off)
     max_blocks, bs = bt.shape[1], pk.shape[1]
     s_kv = max_blocks * bs
     bt_l = bt.to(torch.int64)
@@ -297,5 +323,6 @@ def attention_decode(params, x, cache, pos, dims: AttnDims,
     else:
         ctx = _decode_contiguous(q, k_new, v_new, cache, pos_b, dims)
     ctx = ctx.reshape(b, 1, dims.n_heads * dims.head_dim).to(x.dtype)
-    y = linear(params["wo"], ctx, imc, rng, site=f"{site_prefix}.wo")
+    y = linear(params["wo"], ctx, imc, rng, site=f"{site_prefix}.wo",
+               split="row")
     return y, cache

@@ -133,12 +133,13 @@ def init_mlp(gen, d: int, d_ff: int, kind: str, dtype, device):
 def apply_mlp(params, x, kind: str, imc: IMCConfig = DIGITAL, rng=None):
     # site names follow the shared shapes walk (the gate projection shares
     # the "mlp.wi" site: same shape, same design-point assignment)
+    # (column-parallel wi/wg, row-parallel wo under tensor parallelism)
     if kind in ("swiglu", "geglu"):
-        h = linear(params["wi"], x, imc, rng, site="mlp.wi")
-        g = linear(params["wg"], x, imc, rng, site="mlp.wi")
+        h = linear(params["wi"], x, imc, rng, site="mlp.wi", split="col")
+        g = linear(params["wg"], x, imc, rng, site="mlp.wi", split="col")
         act = F.silu if kind == "swiglu" else _gelu
         h = act(g.to(torch.float32)).to(h.dtype) * h
-        return linear(params["wo"], h, imc, rng, site="mlp.wo")
-    h = linear(params["wi"], x, imc, rng, site="mlp.wi")
+        return linear(params["wo"], h, imc, rng, site="mlp.wo", split="row")
+    h = linear(params["wi"], x, imc, rng, site="mlp.wi", split="col")
     h = _gelu(h.to(torch.float32)).to(h.dtype)
-    return linear(params["wo"], h, imc, rng, site="mlp.wo")
+    return linear(params["wo"], h, imc, rng, site="mlp.wo", split="row")

@@ -15,6 +15,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import parallel
 from repro_torch.core.imc_linear import layer_rng, linear
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (
@@ -69,7 +70,8 @@ def _get(tree, path):
     return tree
 
 
-def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> Dict[str, Any]:
+def init_params(cfg: ArchConfig, seed: int = 0, device=None,
+                shard=None) -> Dict[str, Any]:
     """Random parameters from a ``torch.Generator`` seeded with ``seed``, in
     the reference's layout and scales (not its values: JAX's streams are not
     reproducible in PyTorch; use ``convert.params_from_jax`` for those).
@@ -78,23 +80,32 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> Dict[str, Any]:
     the draw order of stacking a list of layers; a layer is drawn one part
     at a time (a module, or one MoE expert stack), each copied into its row
     before the next is drawn, so the peak memory is the weights plus one
-    part's draws, not twice the weights or one whole layer more."""
+    part's draws, not twice the weights or one whole layer more.
+
+    ``shard(path, tensor)`` (a tuple path, an unstacked leaf) keeps a
+    tensor-parallel rank's block of each drawn leaf
+    (``launch.sharding.init_params``): the draws are the single device's,
+    and only the block is kept."""
     device = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    if shard is None:
+        def shard(path, t):
+            return t
     params: Dict[str, Any] = {
-        "embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype, device),
+        "embed": shard(("embed",), embed_init(
+            gen, cfg.padded_vocab, cfg.d_model, dtype, device)),
         "final_norm": init_norm(cfg.norm_kind, cfg.d_model, dtype, device),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = (torch.randn(
+        params["lm_head"] = shard(("lm_head",), (torch.randn(
             (cfg.d_model, cfg.padded_vocab), generator=gen, device=device)
-            * 0.02).to(dtype)
+            * 0.02).to(dtype))
     if cfg.pos_kind == "learned":
-        params["pos_table"] = (torch.randn(
+        params["pos_table"] = shard(("pos_table",), (torch.randn(
             (cfg.max_seq, cfg.d_model), generator=gen, device=device)
-            * 0.02).to(dtype)
+            * 0.02).to(dtype))
     n_full = cfg.n_full_cycles
     blocks = {}
     for pi, kind in enumerate(cfg.pattern):
@@ -103,6 +114,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> Dict[str, Any]:
             for path, sub in tf.init_block_parts(gen, cfg, kind, dtype,
                                                  device):
                 for leaf_path, t in _leaves(path, sub):
+                    t = shard(("blocks", f"p{pi}") + leaf_path, t)
                     if li == 0:
                         tf.put(stacked, leaf_path, torch.empty(
                             (n_full,) + tuple(t.shape), dtype=t.dtype,
@@ -113,9 +125,18 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> Dict[str, Any]:
     params["blocks"] = blocks
     if cfg.tail_kinds:
         params["tail"] = {
-            f"t{ti}": tf.init_block(gen, cfg, kind, dtype, device)
+            f"t{ti}": tree_map_path(
+                lambda p, t, ti=ti: shard(("tail", f"t{ti}") + p, t),
+                tf.init_block(gen, cfg, kind, dtype, device))
             for ti, kind in enumerate(cfg.tail_kinds)}
     return params
+
+
+def tree_map_path(fn, tree, path=()):
+    """``tree_map`` with each leaf's tuple path as ``fn``'s first argument."""
+    if isinstance(tree, dict):
+        return {k: tree_map_path(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
 
 
 def param_bytes(params) -> int:
@@ -158,15 +179,33 @@ def init_paged_cache(cfg: ArchConfig, batch: int, cache_len: int,
 # ---------------------------------------------------------------------------
 
 
+def _embed_lookup(table, tokens):
+    """``table[tokens]``; under an active shard group the table holds this
+    rank's vocabulary rows, so the rows it lacks are zeros and the group's
+    sum is the whole lookup."""
+    tp = parallel.active()
+    if tp is None:
+        return table[tokens]
+    rows = table.shape[0]
+    local = tokens - tp.rank * rows
+    mine = (local >= 0) & (local < rows)
+    x = table[torch.where(mine, local, 0)]
+    return tp.sum(torch.where(mine[..., None], x, torch.zeros_like(x)))
+
+
 def _embed_inputs(params, cfg: ArchConfig, tokens, prefix_embeds, positions):
-    x = params["embed"][tokens]  # (B, S, d)
+    x = _embed_lookup(params["embed"], tokens)  # (B, S, d)
     if cfg.emb_scale:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype)
     if cfg.modality == "vlm" and prefix_embeds is not None:
         p = prefix_embeds.shape[1]
         x = torch.cat([prefix_embeds.to(x.dtype), x[:, p:]], dim=1)
     if cfg.pos_kind == "learned":
-        x = x + params["pos_table"][positions]
+        pos = params["pos_table"][positions]
+        tp = parallel.active()
+        if tp is not None:  # the table is split over d_model
+            pos = tp.gather(pos)
+        x = x + pos
     elif cfg.pos_kind == "sinusoidal":
         x = x + sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
     return x
@@ -177,7 +216,13 @@ def _head(params, cfg: ArchConfig, x):
     if cfg.tie_embeddings:
         logits = torch.einsum("...d,vd->...v", x, params["embed"])
     else:
-        logits = linear(params["lm_head"], x, cfg.imc, site="lm_head")
+        logits = linear(params["lm_head"], x, cfg.imc, site="lm_head",
+                        split="col")
+    tp = parallel.active()
+    if tp is not None:
+        # this rank's vocabulary columns: gathered whole before the argmax,
+        # so a tie picks the single device's token
+        logits = tp.gather(logits)
     logits = softcap(logits.to(torch.float32), cfg.final_softcap)
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size

@@ -13,6 +13,11 @@ Expert products: on the digital substrate one batched matmul per weight over
 the expert stack; on the IMC substrates one ``linear`` call per group and
 expert, so each sees its own buffer's dynamic ranges and every expert gets
 the same noise seed (the reference vmaps one key over the experts).
+
+Under tensor parallelism (an active ``core.parallel`` shard group) the
+experts and the router's columns are split over the ranks: every rank
+routes with the gathered E logits, runs its own experts, and the weighted
+slot outputs are summed over the group.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import parallel
 from repro_torch.core import substrate as substrate_lib
 from repro_torch.core.imc_linear import DIGITAL, IMCConfig, linear
 from repro_torch.models.layers import _gelu, dense_init
@@ -93,8 +99,13 @@ def apply_moe(params, x, n_experts: int, top_k: int, capacity_factor: float,
     xg = xt.reshape(n_groups, g_sz, d)
     cap = max(int(-(-top_k * g_sz * capacity_factor // n_experts)), 1)
 
+    tp = parallel.active()
     logits = torch.einsum("ngd,de->nge", xg.to(torch.float32),
                           params["router"])
+    if tp is not None:
+        # the router is split over the experts: every rank routes with all
+        # E logits, so every rank computes the same routing
+        logits = tp.gather(logits)
     probs = torch.softmax(logits, dim=-1)  # (n, g, E)
     # top-k with jax.lax.top_k's tie order (the lower expert first; pad
     # rows' uniform probabilities are all ties)
@@ -120,7 +131,15 @@ def apply_moe(params, x, n_experts: int, top_k: int, capacity_factor: float,
     buf[rows, slot] = x_rep
     buf = buf[:, :-1].reshape(n_groups, n_experts, cap, d)
 
-    h = _expert_mlp(params["experts"], buf, mlp_kind, imc, rng)
+    if tp is None:
+        h = _expert_mlp(params["experts"], buf, mlp_kind, imc, rng)
+    else:
+        # this rank's experts run on their buffers; the others' rows stay
+        # zero, and each slot's output comes from exactly one rank
+        e0, e1 = tp.span(n_experts)
+        h = torch.zeros_like(buf)
+        h[:, e0:e1] = _expert_mlp(params["experts"], buf[:, e0:e1],
+                                  mlp_kind, imc, rng)
 
     # gather back to slots, weight by the gates, sum over the k choices
     h_flat = torch.cat([h.reshape(n_groups, overflow, d),
@@ -129,6 +148,8 @@ def apply_moe(params, x, n_experts: int, top_k: int, capacity_factor: float,
     y_slots = h_flat[rows, slot]  # (n, g*k, d)
     y_slots = y_slots * (gate.reshape(n_groups, -1)[..., None]
                          * keep[..., None]).to(y_slots.dtype)
+    if tp is not None:
+        tp.sum(y_slots)  # exact: one nonzero term per slot
     y = y_slots.reshape(n_groups, g_sz, top_k, d).sum(dim=2)
 
     # Switch-style load-balance aux: E * sum_e f_e * p_e, per group

@@ -28,6 +28,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import parallel
 from repro_torch.core.imc_linear import linear
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
@@ -45,10 +46,26 @@ def check_kind(kind: str):
 
 
 def attn_dims(cfg: ArchConfig, kind: str) -> attn_lib.AttnDims:
+    """The attention geometry of a block; under an active shard group
+    (``core.parallel``) this rank's: its query heads, and the KV heads it
+    holds (its share, or all of them when they are replicated)."""
     hd = cfg.resolved_head_dim
+    n_heads, n_kv, kv_head = cfg.n_heads, cfg.n_kv_heads, None
+    tp = parallel.active()
+    if tp is not None:
+        n_heads = cfg.n_heads // tp.size
+        if tp.kv_shard:
+            n_kv = cfg.n_kv_heads // tp.size
+        else:
+            g = cfg.n_heads // cfg.n_kv_heads
+            if g % n_heads:
+                raise ValueError(
+                    f"{n_heads} query heads per rank straddle the "
+                    f"{cfg.n_kv_heads} replicated KV heads (groups of {g})")
+            kv_head = tp.rank * n_heads // g
     return attn_lib.AttnDims(
-        n_heads=cfg.n_heads,
-        n_kv=cfg.n_kv_heads,
+        n_heads=n_heads,
+        n_kv=n_kv,
         head_dim=hd,
         scale=cfg.attn_logit_scale or hd**-0.5,
         softcap_val=cfg.attn_softcap,
@@ -58,6 +75,7 @@ def attn_dims(cfg: ArchConfig, kind: str) -> attn_lib.AttnDims:
         rope_theta=cfg.rope_theta,
         use_rope=cfg.pos_kind == "rope",
         paged_kernel=cfg.decode_attn != "gather",
+        kv_head=kv_head,
     )
 
 
@@ -132,8 +150,8 @@ def init_block_cache(cfg: ArchConfig, kind: str, batch: int, cache_len: int,
         return rg_lib.init_rglru_cache(batch, cfg.rnn_width,
                                        cfg.rnn_conv_width, dtype, device)
     return attn_lib.init_kv_cache(batch, cache_span(cfg, kind, cache_len),
-                                  cfg.n_kv_heads, cfg.resolved_head_dim,
-                                  dtype, device)
+                                  attn_dims(cfg, kind).n_kv,
+                                  cfg.resolved_head_dim, dtype, device)
 
 
 def init_block_cache_paged(cfg: ArchConfig, kind: str, batch: int,
@@ -146,7 +164,7 @@ def init_block_cache_paged(cfg: ArchConfig, kind: str, batch: int,
         return init_block_cache(cfg, kind, batch, cache_len, dtype, device)
     max_blocks = -(-cache_len // block_size)
     return attn_lib.init_paged_kv_cache(batch, num_blocks, block_size,
-                                        max_blocks, cfg.n_kv_heads,
+                                        max_blocks, attn_dims(cfg, kind).n_kv,
                                         cfg.resolved_head_dim, dtype, device)
 
 
@@ -246,7 +264,7 @@ def apply_block_full(p, x, cfg: ArchConfig, kind: str, positions, rng,
         b, s = h.shape[:2]
         ctx = ctx.reshape(b, s, dims.n_heads * dims.head_dim)
         out = attn_lib.linear(p["mixer"]["wo"], ctx, cfg.imc, rng,
-                              site=f"{kind}.wo")
+                              site=f"{kind}.wo", split="row")
         if want_cache:
             cache = _pack_kv_cache(k, v, cache_len, dims.window, x.dtype,
                                    true_len)

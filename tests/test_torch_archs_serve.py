@@ -4,9 +4,10 @@ CPU, on their SMOKE configs in float32 with the JAX parameters carried over
 (``tests/test_torch_archs.py`` holds the models themselves).
 
 Greedy tokens must be identical to the JAX ``Engine`` (``rng=None``) on
-digital and frozen imc_analytic, and on frozen imc_bitserial up to checked
-knife edges (see ``test_engine_tokens_match_reference``); with the same
-scheduling and KV accounting.  Where the window wraps, every request's
+digital and frozen imc_analytic, and on frozen imc_bitserial to the JAX
+package's greedy run of the same requests up to checked knife edges (see
+``test_engine_tokens_match_reference``); with the JAX engine's scheduling
+and KV accounting.  Where the window wraps, every request's
 tokens equal its sequential run (prefill + decode_step), in the port and in
 the JAX package.
 """
@@ -18,13 +19,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import substrate as j_sub
 from repro.core.imc_linear import IMCConfig as JIMC
-from repro.core.substrate import calibrate_model as j_calibrate
 from repro.launch import serve as j_serve
 from repro.models import decode_step as j_decode
 from repro.models import prefill as j_prefill
 from repro_torch import configs as t_configs
 from repro_torch.configs.base import ArchConfig as TArch
+from repro_torch.core import substrate as t_sub
 from repro_torch.core.imc_linear import IMCConfig as TIMC
 from repro_torch.core.substrate import calibrate_model as t_calibrate
 from repro_torch.launch import serve as t_serve
@@ -35,15 +37,35 @@ from repro_torch.runtime import fault as t_fault
 from test_torch_archs import ARCHS, TINY, _np, _smoke, _windowed
 
 
+_CALIBRATIONS = {}
+
+
 def _with_mode(cfg_j, cfg_t, params_j, params_t, mode):
+    """Both configs on ``mode``, each under its own package's frozen
+    calibration on one seeded reference batch, the two held equal site by
+    site (as ``tests/test_torch_model.py`` holds them on musicgen).  The
+    recorded ranges do not depend on the IMC mode (every site runs the
+    noiseless fakequant proxy while recording), so the analytic and
+    bit-serial cases of an architecture share one calibration pass in each
+    package."""
     if mode == "digital":
         return cfg_j, cfg_t
     kw = dict(mode=mode, bx=7, bw=7, v_wl=0.7)
     cfg_j, cfg_t = cfg_j.replace(imc=JIMC(**kw)), cfg_t.replace(
         imc=TIMC(**kw))
-    ref = np.random.default_rng(1).integers(0, cfg_j.vocab_size, (2, 24))
-    return (j_calibrate(cfg_j, params_j, [ref]),
-            t_calibrate(cfg_t, params_t, [ref]))
+    if cfg_t.name not in _CALIBRATIONS:
+        ref = np.random.default_rng(1).integers(0, cfg_j.vocab_size, (2, 24))
+        cal_j = j_sub.calibrate_model(cfg_j, params_j, [ref]).imc.calibration
+        cal_t = t_calibrate(cfg_t, params_t, [ref]).imc.calibration
+        d_j, d_t = cal_j.to_dict(), cal_t.to_dict()
+        assert sorted(d_j) == sorted(d_t)
+        for site in d_j:
+            for f, v in d_j[site].items():
+                assert d_t[site][f] == pytest.approx(v, rel=1e-5), (site, f)
+        _CALIBRATIONS[cfg_t.name] = cal_j, cal_t
+    cal_j, cal_t = _CALIBRATIONS[cfg_t.name]
+    return (cfg_j.replace(imc=j_sub.as_substrate(cfg_j.imc).frozen(cal_j)),
+            cfg_t.replace(imc=t_sub.as_substrate(cfg_t.imc).frozen(cal_t)))
 
 
 def _engine_tokens(serve_mod, cfg, params, lens, max_new, **kw):
@@ -59,11 +81,14 @@ def _engine_tokens(serve_mod, cfg, params, lens, max_new, **kw):
     return {r.rid: r.out for r in done}, engine
 
 
-def _replay(prefill_fn, decode_fn, prompts, outs, to_dev, to_np):
+def _replay(prefill_fn, decode_fn, prompts, outs, to_dev, to_np,
+            max_new=None):
     """Logits of every generated position of several requests at once, each
     on its history ``prompt + out``: one bucketed prefill of the prompts
     (``true_len``), then decode_step on the contiguous caches with per-row
-    positions.  Returns (rows, len(out), V)."""
+    positions.  With ``outs=None`` the histories are the greedy picks
+    themselves (``max_new`` tokens a request).  Returns (rows, len(out),
+    V)."""
     lens = [len(p) for p in prompts]
     bucket = t_serve.prefill_bucket(max(lens), True, 10**9)
     toks = np.zeros((len(prompts), bucket), np.int64)
@@ -71,8 +96,9 @@ def _replay(prefill_fn, decode_fn, prompts, outs, to_dev, to_np):
         toks[r, :len(p)] = p
     logits, cache = prefill_fn(to_dev(toks), to_dev(np.asarray(lens)))
     rows = [to_np(logits)[:, -1]]
-    for t in range(len(outs[0]) - 1):
-        col = np.asarray([o[t] for o in outs])
+    for t in range((max_new if outs is None else len(outs[0])) - 1):
+        col = (rows[-1].argmax(-1) if outs is None
+               else np.asarray([o[t] for o in outs]))
         logits, cache = decode_fn(to_dev(col), cache)
         rows.append(to_np(logits)[:, 0])
     return np.stack(rows, axis=1)
@@ -87,17 +113,29 @@ def _replay(prefill_fn, decode_fn, prompts, outs, to_dev, to_np):
 EDGE_DEV_CAP = 2 * 0.0827
 
 
-def _knife_edges(cfg_j, cfg_t, params_j, params_t, prompts, outs, cache_len):
-    """Both packages replay requests on the reference's histories
-    ``prompts[r] + outs[r]``.  Returns the largest logit deviation between
-    them over every position, and where the port's greedy pick differs from
-    the reference's: (row, position, pick J, pick T, J's margin between the
-    two, the deviation there)."""
+def _jax_greedy(cfg_j, params_j, prompts, max_new, cache_len):
+    """The reference's greedy run of every request at once (a bucketed
+    prefill, then decode_step on the contiguous caches, each row fed its
+    own pick): ({rid: tokens}, logits (rows, max_new, V)).  Under frozen
+    calibration it is the JAX engine's run (the reference's contract: the
+    engine equals sequential execution), in one pass of the bit-serial
+    oracle instead of an engine run and a replay."""
     lj = _replay(
         jax.jit(lambda t, n: j_prefill(params_j, cfg_j, t, cache_len,
                                        true_len=n)),
-        jax.jit(lambda t, c: j_decode(params_j, cfg_j, t, c)), prompts, outs,
-        lambda a: jnp.asarray(a, jnp.int32), _np)
+        jax.jit(lambda t, c: j_decode(params_j, cfg_j, t, c)), prompts, None,
+        lambda a: jnp.asarray(a, jnp.int32), _np, max_new)
+    return {r: [int(t) for t in lj[r].argmax(-1)]
+            for r in range(len(prompts))}, lj
+
+
+def _knife_edges(lj, cfg_t, params_t, prompts, outs, cache_len):
+    """The port replays the requests on the reference's histories
+    ``prompts[r] + outs[r]`` (``lj``: the reference's logits there).
+    Returns the largest logit deviation between them over every position,
+    and where the port's greedy pick differs from the reference's: (row,
+    position, pick J, pick T, J's margin between the two, the deviation
+    there)."""
     lt = _replay(
         lambda t, n: t_prefill(params_t, cfg_t, t, cache_len, true_len=n),
         lambda t, c: t_decode(params_t, cfg_t, t, c), prompts, outs,
@@ -112,6 +150,23 @@ def _knife_edges(cfg_j, cfg_t, params_j, params_t, prompts, outs, cache_len):
     return float(np.abs(lj - lt).max()), edges
 
 
+_JAX_ENGINES = {}
+
+
+def _jax_engine(arch, mode, cfg_j, cfg_j0, params_j, lens, max_new):
+    """The JAX engine's tokens, then its counters and KV accounting, on
+    ``mode`` (memoized: the digital run serves the bit-serial case's
+    scheduling check too)."""
+    if (arch, mode) not in _JAX_ENGINES:
+        out, eng = _engine_tokens(j_serve, cfg_j0 if mode == "digital"
+                                  else cfg_j, params_j, lens, max_new)
+        _JAX_ENGINES[(arch, mode)] = out, (
+            eng.prefill_calls, eng.prefill_rows, eng.decode_calls,
+            eng.decode_steps, eng._block_bytes, eng._fixed_kv_bytes,
+            eng.kv_pool_bytes())
+    return _JAX_ENGINES[(arch, mode)]
+
+
 @pytest.mark.parametrize("mode", ["digital", "imc_analytic",
                                   "imc_bitserial"])
 @pytest.mark.parametrize("arch", ARCHS)
@@ -124,35 +179,43 @@ def test_engine_tokens_match_reference(arch, mode):
     49 plane pairs in float64 and rounds once, the reference's in float32
     (``tests/test_torch_kernels.py``), so an output differs in its last bits
     and a downstream quantizer code can flip where an activation sits on a
-    rounding edge.  Both packages replay every request on the reference's
-    tokens (a bucketed prefill, then decode_step on contiguous caches): the
-    logits may deviate by at most ``EDGE_DEV_CAP`` anywhere; every request
-    whose tokens differ must have a differing pick, each such pick only
-    where the reference's own margin between the two picks is within the
-    packages' logit deviation at that position (a knife edge), and the
-    port's engine must equal its own sequential greedy run (the
-    frozen-calibration contract)."""
-    cfg_j, cfg_t, params_j, params_t = _smoke(arch)
-    cfg_j, cfg_t = _with_mode(cfg_j, cfg_t, params_j, params_t, mode)
+    rounding edge.  The reference's tokens and logits come from one greedy
+    run of every request in the JAX package (``_jax_greedy``: under frozen
+    calibration the JAX engine's tokens, by the reference's contract, for
+    one pass of its bit-serial oracle instead of two), its scheduling and
+    KV accounting from the JAX engine's digital run of the same requests;
+    the port replays every request on the reference's tokens (a bucketed
+    prefill, then decode_step on contiguous caches): the logits may deviate
+    by at most ``EDGE_DEV_CAP`` anywhere; every request whose tokens differ
+    must have a differing pick, each such pick only where the reference's
+    own margin between the two picks is within the packages' logit
+    deviation at that position (a knife edge), and the port's engine must
+    equal its own sequential greedy run (the frozen-calibration
+    contract)."""
+    cfg_j0, cfg_t, params_j, params_t = _smoke(arch)
+    cfg_j, cfg_t = _with_mode(cfg_j0, cfg_t, params_j, params_t, mode)
     lens, max_new = [5, 30, 9, 3, 17], 14
-    out_j, eng_j = _engine_tokens(j_serve, cfg_j, params_j, lens, max_new)
     out_t, eng_t = _engine_tokens(t_serve, cfg_t, params_t, lens, max_new)
+    # the JAX engine's scheduling and KV accounting do not depend on the
+    # substrate: the bit-serial case takes them from the digital engine's
+    # run of the same requests (shared with the digital case)
+    out_j, cnt_j = _jax_engine(arch, "digital" if mode == "imc_bitserial"
+                               else mode, cfg_j, cfg_j0, params_j, lens,
+                               max_new)
     assert (eng_t.prefill_calls, eng_t.prefill_rows, eng_t.decode_calls,
-            eng_t.decode_steps) == (eng_j.prefill_calls, eng_j.prefill_rows,
-                                    eng_j.decode_calls, eng_j.decode_steps)
-    # KV accounting: pool bytes per block and the fixed rings
-    assert (eng_t._block_bytes, eng_t._fixed_kv_bytes) == (
-        eng_j._block_bytes, eng_j._fixed_kv_bytes)
-    assert eng_t.kv_pool_bytes() == eng_j.kv_pool_bytes()
+            eng_t.decode_steps, eng_t._block_bytes, eng_t._fixed_kv_bytes,
+            eng_t.kv_pool_bytes()) == cnt_j
     if mode != "imc_bitserial":
         assert out_t == out_j
         return
     rnp = np.random.default_rng(11)
     prompts = [rnp.integers(0, cfg_t.vocab_size, n) for n in lens]
+    cache_len = 32 + max_new + 8
+    out_j, lj = _jax_greedy(cfg_j, params_j, prompts, max_new, cache_len)
     differ = [rid for rid in out_j if out_t[rid] != out_j[rid]]
-    worst, edges = _knife_edges(cfg_j, cfg_t, params_j, params_t, prompts,
+    worst, edges = _knife_edges(lj, cfg_t, params_t, prompts,
                                 [out_j[r] for r in range(len(lens))],
-                                32 + max_new + 8)
+                                cache_len)
     assert worst <= EDGE_DEV_CAP, worst
     assert {e[0] for e in edges} == set(differ), (differ, edges)
     for r, i, pj, pt, margin, dev in edges:

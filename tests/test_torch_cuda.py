@@ -17,7 +17,8 @@ float kernel's split-TF32 sums run in another order than cuBLAS's; the
 int8 kernel's exact code product is divided by sigma_yo once, where the
 plain version divides every code first), allclose(rtol 1e-5, atol 1e-5 *
 max|y|) without it, and their noise within 3 ulp of the plain version's
-draw.
+draw.  A tensor-parallel mesh of two processes sharing the card over gloo
+serves the one-device engine's greedy tokens.
 """
 import numpy as np
 import pytest
@@ -100,6 +101,9 @@ def test_paged_attention_long_context(dev):
     (8, 2, 64, None),     # granite-moe-1b-a400m
     (8, 6, 128, None),    # dbrx-132b: 3 query chunks of 2 rows
     (8, 2, 128, None),    # internvl2-2b
+    (6, 1, 64, None),     # musicgen-medium, one rank of 1x4
+    (2, 6, 128, None),    # dbrx-132b, one rank of 1x4
+    (1, 12, 128, None),   # granite-20b, one rank of 1x4 (replicated pool)
 ])
 def test_paged_attention_architecture_layouts(dev, dtype, hkv, g, hd,
                                               softcap):
@@ -123,6 +127,29 @@ def test_paged_attention_architecture_layouts(dev, dtype, hkv, g, hd,
     assert pa.paged_attention_cuda.layouts[key] == before.get(key, 0) + 1
     torch.testing.assert_close(ctx_k, ctx_p, rtol=1e-5, atol=1e-5)
     assert torch.equal(pk_k[1:], pk_p[1:]) and torch.equal(pv_k[1:], pv_p[1:])
+
+
+def test_paged_attention_idle_rows_read_the_last_writer(dev):
+    """An engine's idle rows: three slots never admitted (empty tables, all
+    writing block 0 at offset 0 and reading it back) and a retired slot
+    whose stale table is a live slot's (it reads the row that slot writes).
+    Every new row lands before any is read, the highest slot's where
+    several meet, so every row's output and the whole pools equal the
+    plain version's on every launch."""
+    q, kn, vn, pk, pv, bt, pos = _paged_state(
+        dev, torch.bfloat16, b=6, hkv=6, g=1, hd=64,
+        pos=(3, 11, 0, 0, 0, 11))
+    bt[2:5] = 0
+    bt[5] = bt[1]
+    active = torch.tensor([True, True, False, False, False, False],
+                          device=dev)
+    ctx_p, pk_p, pv_p = pa.decode_plain(q, kn, vn, pk.clone(), pv.clone(), bt,
+                                        pos, active, scale=0.125)
+    for _ in range(3):
+        ctx_k, pk_k, pv_k = pa.paged_attention_decode(
+            q, kn, vn, pk.clone(), pv.clone(), bt, pos, active, scale=0.125)
+        torch.testing.assert_close(ctx_k, ctx_p, rtol=1e-5, atol=1e-5)
+        assert torch.equal(pk_k, pk_p) and torch.equal(pv_k, pv_p)
 
 
 def test_init_params_full_width_peak_memory(dev):
@@ -278,6 +305,30 @@ def test_bitserial_kernel_matches_plain_at_serve_shapes(dev, b, k, m, gain):
     torch.cuda.synchronize()
     assert imc_mvm.bitserial_cuda.gain_launches == before + int(gain)
     assert torch.equal(y_k, y_p), float((y_k - y_p).abs().max())
+
+
+def test_bitserial_kernel_column_shards_match_the_whole_call(dev):
+    """A tensor-parallel rank's call on its columns (``col0``), noise and
+    gain on: bit for bit the plain version at the same offset, and the
+    shards side by side the whole call."""
+    b, k, m, tp = 4, 1536, 384, 4
+    spec = ref.BitSerialSpec(bx=7, bw=7, b_adc=10, rows=256, k_h=60.0,
+                             v_c=55.0, x_signed=True, sigma_noise=0.3)
+    xc, wc = _codes(dev, b, k, m, 7, 7, True, seed=7)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    gain = 1.0 + 0.1 * torch.randn((k, m), generator=gen, device=dev)
+    whole = imc_mvm.imc_bitserial_matmul(xc, wc, gain, spec, seed=4244)
+    per, parts = m // tp, []
+    for r in range(tp):
+        cols = slice(r * per, (r + 1) * per)
+        y_k = imc_mvm.imc_bitserial_matmul(xc, wc[:, cols], gain[:, cols],
+                                           spec, seed=4244, col0=r * per)
+        y_p = ref.imc_bitserial_ref(xc, wc[:, cols], gain[:, cols], spec,
+                                    seed=4244, col0=r * per)
+        torch.cuda.synchronize()
+        assert torch.equal(y_k, y_p), (r, float((y_k - y_p).abs().max()))
+        parts.append(y_k)
+    assert torch.equal(torch.cat(parts, dim=1), whole)
 
 
 def _analytic_operands(dev, b, k, m, seed=2):
@@ -794,3 +845,57 @@ def test_mc_chunked_ensemble_on_card(dev, monkeypatch):
                               ens=5000) for _ in range(2)]
     assert runs[0] == runs[1]
     assert abs(runs[0]["snr_A_db"] - arch.snr_A_db()) < 1.0, runs[0]
+
+
+def _two_rank_tokens(mode):
+    """One rank of a 1x2 mesh sharing the card over gloo: musicgen-medium
+    SMOKE on ``mode``, weights made on the CPU and cut to this rank's
+    shard; rank 0 returns the tokens."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding
+
+    cfg, params, reqs = _tp_case(mode)
+    mesh = mesh_lib.make_serve_mesh(1, 2)
+    params = sharding.shard_params(params, cfg, mesh)
+    return _tp_serve(cfg, params, reqs, mesh)
+
+
+def _tp_case(mode):
+    from repro_torch import configs
+    from repro_torch.core import substrate as substrate_lib
+    from repro_torch.core.imc_linear import IMCConfig
+    from repro_torch.launch.serve import Request
+    from repro_torch.models import init_params
+
+    cfg = configs.get_smoke("musicgen-medium")
+    params = init_params(cfg, seed=0, device="cpu")
+    if mode != "digital":
+        cfg = cfg.replace(imc=IMCConfig(mode=mode, bx=7, bw=7, v_wl=0.7))
+        ref_batch = np.random.default_rng(1).integers(0, 256, (2, 24))
+        cfg = substrate_lib.calibrate_model(cfg, params, [ref_batch])
+    rnp = np.random.default_rng(2)
+    reqs = [Request(rid=i, prompt=rnp.integers(0, 256, n), max_new=6)
+            for i, n in enumerate((4, 9, 20, 6))]
+    return cfg, params, reqs
+
+
+def _tp_serve(cfg, params, reqs, mesh=None):
+    from repro_torch.launch.serve import Engine, serve
+    from repro_torch.models.model import tree_map
+
+    params = tree_map(lambda t: t.to("cuda"), params)
+    eng = Engine(cfg, params, batch_slots=4, cache_len=40, max_chunk=4,
+                 mesh=mesh)
+    return {r.rid: r.out for r in serve(eng, reqs)}
+
+
+@pytest.mark.parametrize("mode", ["digital", "imc_bitserial"])
+def test_two_ranks_sharing_the_card_match_one_device(dev, mode):
+    """A 1x2 mesh of two processes on one card over gloo (head-sharded
+    pools, the paged and bit-serial kernels per rank at the local layout)
+    serves the one-device engine's greedy tokens."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    cfg, params, reqs = _tp_case(mode)
+    want = _tp_serve(cfg, params, reqs)
+    assert mesh_lib.launch(2, "gloo", _two_rank_tokens, mode) == want

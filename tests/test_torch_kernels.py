@@ -794,6 +794,35 @@ def test_write_routing_contract():
     assert _np(dj).tolist() == [4, 0] and _np(oj).tolist() == [1, 3]
 
 
+def test_colliding_idle_rows_match_reference():
+    """An engine's idle rows: three slots never admitted (empty tables: all
+    write block 0 at offset 0 and read it back) and a retired slot whose
+    stale table is a live slot's.  The highest slot's row lands where
+    several meet (``scatter_new_rows``), as in the reference's gather and
+    Pallas versions: every row's output and the whole pools, block 0
+    included, equal theirs."""
+    q, kn, vn, pk, pv, bt, pos = _paged_state(seed=4, b=6,
+                                              pos=(3, 11, 0, 0, 0, 11))
+    bt[2:5] = 0
+    bt[5] = bt[1]
+    active = np.array([True, True, False, False, False, False])
+    state = (q, kn, vn, pk, pv, bt, pos)
+    got = t_pa.decode_plain(*(torch.tensor(a) for a in state),
+                            torch.tensor(active), scale=SCALE)
+    gather = t_ref.paged_attention_ref(*(torch.tensor(a) for a in state),
+                                       torch.tensor(active), scale=SCALE)
+    assert np.array_equal(got[1][0, 0].numpy(), kn[4])
+    for ref in (j_ref.paged_attention_ref(*map(jnp.asarray, state),
+                                          jnp.asarray(active), scale=SCALE),
+                j_pa.paged_attention_decode(*map(jnp.asarray, state),
+                                            jnp.asarray(active), scale=SCALE),
+                gather):
+        np.testing.assert_allclose(got[0].numpy(), _np(ref[0]), rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_array_equal(got[1].numpy(), _np(ref[1]))
+        np.testing.assert_array_equal(got[2].numpy(), _np(ref[2]))
+
+
 # ---------------------------------------------------------------------------
 # the analytic codes route (int8 kernel on the card)
 # ---------------------------------------------------------------------------

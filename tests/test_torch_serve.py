@@ -146,10 +146,11 @@ def test_cli_serves_on_cpu_and_refuses_unported_flags():
                         "frozen", "--device", "cpu"])
     assert len(rep["finished"]) == 3 and rep["tokens"] == 9
     assert rep["engine"].host_transfer_bytes > 0
-    # tensor-parallel meshes are the one reference flag still refused
+    # tensor-parallel meshes serve (tests/test_torch_sharded.py); slots
+    # sharded over data replicas (R > 1) are still refused
     with pytest.raises(SystemExit):
         t_serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                      "--mesh", "1x2"])
+                      "--mesh", "2x1"])
     # the prefix and drift flags are ported and run
     rep = t_serve.main(["--arch", ARCH, "--smoke", "--batch", "2",
                         "--requests", "4", "--prompt-lens", "3,9", "--gen",
