@@ -55,14 +55,30 @@ Phases, each reported on its own line:
              TTFT and the launches by route and paged layout; then gemma2's
              window request alone through prefill + decode_step against the
              engine's tokens;
-  mesh       tensor-parallel serving: ``--mesh 1x1`` through the CLI (one
-             rank over NCCL), then four ranks sharing the card over gloo
+  mesh       tensor-parallel serving: first a bitwise diagnostic of one
+             card's cuBLAS products at musicgen-medium's bf16 site shapes
+             (each rank's column slice against the whole product's columns,
+             the row-parallel float32 partial sum against one product;
+             counts of differing elements), then ``--mesh 1x1`` through the
+             CLI (one rank over NCCL), then four ranks sharing the card over
+             gloo
              (processes): full-width musicgen-medium on digital, bit-serial
              (noise and gain) and frozen analytic, dbrx-132b at 4 of its 40
              layers and granite-20b at 2 of 52 (``reduced``), each against
              the same run on one device (tokens, or knife-edge picks within
              the runs' logit deviation, printed), the paged kernel at each
              rank's layout, per-rank weight, KV-pool and peak bytes;
+  train      single-device training: full-width musicgen-medium (bf16,
+             seeded random weights) through ``launch.train.main``, 12 steps
+             of 8 x 512 tokens with a checkpoint every 6 (each step's loss,
+             grad norm and lr, ms a step, tokens/s, model FLOPs against the
+             bf16 peak, peak memory against parameters, gradients and Adam
+             state; finite losses that fall), resumed to 18 from the
+             step-12 checkpoint (restored bit for bit), 4 steps each of the
+             imc_analytic and fakequant training modes, one layer's
+             attention through the flash Function against plain autograd
+             (peak bytes, ms, gradients at rel 1e-5), and the SMOKE train
+             step card against CPU in float32; no kernel launches (counted);
   6 parity   the SMOKE configs in float32 (all ten architectures): the
              engine on the card against the
              same engine on the CPU, greedy tokens identical (for the
@@ -79,7 +95,9 @@ Phases, each reported on its own line:
              the kernel bench, which runs the frozen seed bit-serial kernel
              beside the port's; phase 3 holds each kernel it times against
              its plain version on the same inputs), counting the seed
-             wrapper's calls (graph-captured calls once each); then the
+             wrapper's calls (graph-captured calls once each), and the
+             whole-model SNR sweep (gemma2-9b and mamba2-2.7b SMOKE with
+             every matmul on the analytic substrate); then the
              MC convergence sweep (S_A - E_A and S_T - S_A at the reference's
              512-row QS, QR and CM points and its 128-row QR and 64-row CM
              points, ensembles of 600 to 10^6 under 8 generator seeds).
@@ -116,7 +134,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "chip_smoke"  # logs and profiler tables (git-ignored)
 PHASES = ("device", "build", "kernels", "design", "serve", "archs", "mesh",
-          "parity", "bench")
+          "train", "parity", "bench")
 # not run by default: a profiler trace of one decode chunk per substrate
 EXTRA_PHASES = ("profile", "tiles", "host", "kprofile", "chunks")
 
@@ -2180,6 +2198,137 @@ def mesh_rank(calibration):
     return results
 
 
+# musicgen-medium's matmul sites by shape (K, M) and how a mesh splits
+# them: column sites keep K whole and split M, row sites split K (the
+# partial sums are all-reduced)
+SITE_SPLITS = (((1536, 1536), "attn.wq/wk/wv column, attn.wo row"),
+               ((1536, 6144), "mlp.wi column"),
+               ((6144, 1536), "mlp.wo row"),
+               ((1536, 2048), "lm_head column"))
+
+
+def mesh_numerics():
+    """The diagnostic of the sharded runs' deviation from one device, at
+    musicgen-medium's bf16 site shapes (``SITE_SPLITS``) and
+    ``MESH_RANKS`` ranks, with 4 rows (a decode step of the mesh runs) and
+    128 (a prefill), every shape split both ways: (1) each rank's column
+    slice of the weight through ``torch.mm`` against the same columns of
+    the whole product; (2) the row-parallel path of
+    ``core.imc_linear._matmul`` (each rank's float32 partial over its share
+    of K, summed in rank order, rounded to bf16 once) against one device's
+    product.  Prints the count of elements that differ bitwise; returns
+    the differing elements of the splits the mesh uses, column and row."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tp, bf = MESH_RANKS, torch.bfloat16
+    used = {"column": 0, "row": 0}
+    for rows in (4, 128):
+        for (k, m), sites in SITE_SPLITS:
+            x = torch.randn((rows, k), generator=gen, device="cuda").to(bf)
+            w = (torch.randn((k, m), generator=gen, device="cuda")
+                 * k**-0.5).to(bf)
+            whole = torch.mm(x, w)
+            c, kk = m // tp, k // tp
+            col = sum(int((torch.mm(x, w[:, r * c:(r + 1) * c].contiguous())
+                           != whole[:, r * c:(r + 1) * c]).sum())
+                      for r in range(tp))
+            part = torch.zeros((rows, m), dtype=torch.float32, device="cuda")
+            for r in range(tp):
+                part += torch.mm(x[:, r * kk:(r + 1) * kk].contiguous(),
+                                 w[r * kk:(r + 1) * kk].contiguous(),
+                                 out_dtype=torch.float32)
+            row = int((part.to(bf) != whole).sum())
+            used["column"] += col if "column" in sites else 0
+            used["row"] += row if "row" in sites else 0
+            say("mesh", f"bitwise, {rows} x {k} @ {k} x {m} bf16 ({sites}) "
+                f"at 1x{tp}: column slices differ from the whole product at "
+                f"{col} of {rows * m} elements; the row-parallel float32 "
+                f"partial sum, rounded once, at {row}")
+    return used
+
+
+@contextlib.contextmanager
+def split_k_rows(n):
+    """One device computing every row-parallel site as ``n`` ranks do
+    (``core.imc_linear._matmul`` under a shard group): ``n`` float32
+    partial products over equal shares of K, added in rank order
+    (``core.parallel.ShardGroup.sum``) and rounded to bf16 once.  Every
+    other site runs the one-device code.  The models call ``linear`` by
+    name, so each calling module's name is swapped for a wrapper that
+    marks its row sites."""
+    import torch
+
+    from repro_torch.core import imc_linear
+    from repro_torch.models import attention, layers, transformer
+
+    modules = (attention, layers, transformer)
+    inner_linear, inner_matmul = imc_linear.linear, imc_linear._matmul
+    row = []
+
+    def linear(*a, split=None, **k):
+        row.append(split == "row")
+        try:
+            return inner_linear(*a, split=split, **k)
+        finally:
+            row.pop()
+
+    def matmul(x, w, tp=None):
+        if tp is not None or not (row and row[-1]):
+            return inner_matmul(x, w, tp)
+        if x.dtype != torch.bfloat16 or not x.is_cuda:
+            raise ValueError("split_k_rows mirrors the bf16 CUDA row sites")
+        k = x.shape[-1] // n
+        x2 = x.reshape(-1, x.shape[-1])
+        acc = None
+        for r in range(n):
+            part = torch.mm(x2[:, r * k:(r + 1) * k].contiguous(),
+                            w[r * k:(r + 1) * k].contiguous(),
+                            out_dtype=torch.float32)
+            acc = part if acc is None else acc.add_(part)
+        return acc.reshape(*x.shape[:-1], w.shape[-1]).to(x.dtype)
+
+    for mod in modules:
+        mod.linear = linear
+    imc_linear._matmul = matmul
+    try:
+        yield
+    finally:
+        for mod in modules:
+            mod.linear = inner_linear
+        imc_linear._matmul = inner_matmul
+
+
+def split_k_parity(label, case, cfg, res, params):
+    """Hold a 1x``MESH_RANKS`` run (``res``) against one device whose row
+    sites are split as the ranks split them (:func:`split_k_rows`): tokens,
+    counters and every logit, bit for bit.  Prints the verdict; returns
+    the failure or None."""
+    import torch
+
+    with split_k_rows(MESH_RANKS):
+        out, cnt, probe, eng, _ = mesh_serve(case, cfg, params)
+    del eng
+    keys = sorted(res["logits"])
+    diff = [k for k in keys if k not in probe.logits
+            or not torch.equal(probe.logits[k], res["logits"][k])]
+    dev = max((float((probe.logits[k] - res["logits"][k]).abs().max())
+               for k in diff if k in probe.logits), default=0.0)
+    same = (out == res["out"] and cnt == res["cnt"]
+            and probe.logits.keys() == res["logits"].keys())
+    say("mesh", f"{label} against one device with its row sites split as "
+        f"the ranks split them ({MESH_RANKS} float32 partials over equal "
+        f"shares of K, added in rank order, rounded once): tokens "
+        f"{'equal' if out == res['out'] else 'DIFFER'}, counters "
+        f"{'equal' if cnt == res['cnt'] else 'DIFFER'}, {len(diff)} of "
+        f"{len(keys)} logit rows differ bitwise (largest deviation {dev})")
+    if same and not diff:
+        return None
+    return (f"{label}: one device with split row sites is not the mesh's "
+            f"run bit for bit ({len(diff)} logit rows differ, largest "
+            f"deviation {dev}; tokens {out} against {res['out']})")
+
+
 def phase_mesh():
     """Tensor-parallel serving on the card.  (a) ``--mesh 1x1`` through the
     CLI: one rank over NCCL, full-width musicgen-medium, digital.  (b, c)
@@ -2196,7 +2345,10 @@ def phase_mesh():
     paged-attention launch per layer and decode step at the rank's layout;
     per-rank weight bytes, KV pool bytes per device, peak memory and tok/s
     (four processes time-sharing one card: not a scaling number).  Returns
-    rank 0's launch counts."""
+    rank 0's launch counts.  The musicgen-medium digital and frozen
+    analytic runs are also held bit for bit against one device that splits
+    its row sites' dot products as the ranks do (:func:`split_k_parity`):
+    the only difference between the mesh and one device."""
     import types
 
     import numpy as np
@@ -2209,8 +2361,14 @@ def phase_mesh():
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import init_params
 
-    totals, layouts = {}, {}
+    totals, layouts, split_k_failures = {}, {}, []
     free_device()
+    used = mesh_numerics()
+    say("mesh", f"at the splits the mesh uses: column sites differ from one "
+        f"device's product at {used['column']} elements, row sites at "
+        f"{used['row']} (one product over K is not the sum of four over "
+        f"its quarters: the caps of MESH_CASES; split_k_parity holds the "
+        f"rest bit for bit)")
     argv = ["--arch", "musicgen-medium", "--batch", "4", "--requests",
             str(len(MESH_LENS)), "--prompt-lens",
             ",".join(map(str, MESH_LENS)), "--gen", str(MESH_GEN), "--seed",
@@ -2284,6 +2442,13 @@ def phase_mesh():
                                    and case[3] == "imc_analytic"),
                              edges=cap is not None, strict=cap is None,
                              cap=cap, show_dev=True)
+        if case[1] == "musicgen-medium" and case[3] != "imc_bitserial":
+            if not whole:
+                free_device()
+                whole["params"] = init_params(cfg, seed=0, device="cuda")
+            failed = split_k_parity(label, case, cfg, res, whole["params"])
+            if failed is not None:
+                split_k_failures.append(failed)
         whole.clear()
         free_device()
         say("mesh", f"{label} against one device: {verdict}")
@@ -2303,11 +2468,324 @@ def phase_mesh():
             totals[k] = totals.get(k, 0) + v
         for k, v in res["ranks"][0]["layouts"].items():
             layouts[k] = layouts.get(k, 0) + v
+    if split_k_failures:
+        raise AssertionError("; ".join(split_k_failures))
     for key in [*totals]:
         if key.startswith("analytic"):
             del totals[key]
     totals.update({f"paged_attention[{k}]": v for k, v in layouts.items()})
     return totals
+
+
+# ---------------------------------------------------------------------------
+# train: single-device training at full width
+# ---------------------------------------------------------------------------
+
+# full-width musicgen-medium through ``launch.train.main`` (bf16, seeded
+# random weights, the synthetic pipeline), 8 x 512 tokens a step
+TRAIN_ARGV = ["--arch", "musicgen-medium", "--batch", "8", "--seq", "512",
+              "--lr", "1e-3", "--log-every", "1"]
+TRAIN_STEPS, TRAIN_RESUME_STEPS, TRAIN_SAVE_EVERY, IMC_TRAIN_STEPS = 12, 18, 6, 4
+# NVIDIA H100 SXM published dense bf16 tensor-core peak
+BF16_FLOPS_PER_S = 989e12
+# one layer's attention held in (d), (B, S, H, hd): musicgen at the run's
+# shape (one 512 x 1024 block: both ways keep a whole score block), and a
+# 2048-token sequence of 4 x 2 blocks (autograd keeps every block)
+ATTN_SHAPES = ((8, 512, 24, 64), (2, 2048, 24, 64))
+
+
+def train_run(label, argv):
+    """Train in-process through the CLI entry point on the card; returns
+    (state, history, peak device bytes of the run, seconds).  Every loss
+    must be finite."""
+    import math
+
+    import torch
+
+    from repro_torch.launch import train
+
+    free_device()
+    t0 = time.perf_counter()
+    state, hist = train.main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = hist["loss"]
+    if not losses or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train {label}: losses {losses}")
+    return state, hist, peak, dt
+
+
+def step_report(label, hist) -> float:
+    """Print each step's loss, grad norm and lr; returns the median ms a
+    step after the first (which builds and warms up)."""
+    import numpy as np
+
+    for r in hist["steps"]:
+        say("train", f"{label} step {r['step']}: loss {r['loss']:.4f}, grad "
+            f"norm {r['grad_norm']:.4f}, lr {r['lr']:.4e}, {r['ms']:.1f} ms")
+    return float(np.median([r["ms"] for r in hist["steps"][1:]]))
+
+
+def train_flops(cfg, n_params, batch, seq):
+    """Model FLOPs of one train step: 6 N per token for the weights, plus
+    causal attention (QK^T and PV over the lower triangle, forward and
+    twice that backward: 6 B H S^2 hd a layer); recomputation excluded."""
+    attn = 6 * batch * cfg.n_heads * seq * seq * cfg.resolved_head_dim \
+        * cfg.n_layers
+    return 6 * n_params * batch * seq + attn
+
+
+def check_resumed_state(ckpt_dir, step, state):
+    """The checkpoint at ``step`` restores to ``state`` bit for bit."""
+    import torch
+
+    from repro_torch import checkpoint, tree
+
+    restored, extra = checkpoint.restore(ckpt_dir, step, state)
+    if extra.get("next_step") != step:
+        raise AssertionError(f"train: checkpoint {step} extra {extra}")
+    bad = [p for (p, a), (_, b) in zip(tree.flatten_with_path(state),
+                                       tree.flatten_with_path(restored))
+           if a.dtype != b.dtype or not torch.equal(a, b)]
+    if bad:
+        raise AssertionError(f"train: step {step} restored != saved at {bad}")
+    n = len(tree.leaves(state))
+    del restored
+    return n
+
+
+def attention_fwd_bwd(dev, shape):
+    """(d) One layer's attention at ``shape`` in float32: the flash
+    Function (recompute backward) against plain autograd through the blocked
+    forward: peak bytes above the inputs and ms of forward + backward
+    (CUDA events, mean of 5 after one warm-up), gradients at rel 1e-5."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as tf
+
+    b, s, h, hd = shape
+    dims = tf.attn_dims(configs.get("musicgen-medium"), "attn")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v, dout = (torch.randn((b, s, h, hd), generator=gen, device=dev)
+                     for _ in range(4))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+
+    def plain(q, k, v, dims):
+        return attn.flash_forward(q, k, v, dims)[0].reshape(q.shape)
+
+    out = {}
+    for name, fn in (("Function", attn.flash_attention), ("plain", plain)):
+        def run():
+            return torch.autograd.grad(fn(q, k, v, dims), (q, k, v), dout)
+
+        free_device()
+        base = torch.cuda.memory_allocated()
+        grads = run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(5):
+            run()
+        ev[1].record()
+        torch.cuda.synchronize()
+        out[name] = (grads, peak, ev[0].elapsed_time(ev[1]) / 5)
+    for gname, gf, gp in zip("qkv", out["Function"][0], out["plain"][0]):
+        err = float((gf - gp).abs().max() / gp.abs().max())
+        if not err <= 1e-5:
+            raise AssertionError(f"train: d{gname} of the flash Function "
+                                 f"off plain autograd by {err:.2e}")
+    for name in ("Function", "plain"):
+        say("train", f"attention {shape} float32 {name}: forward + backward "
+            f"{out[name][2]:.3f} ms, peak {out[name][1] / 1e9:.3f} GB above "
+            f"the inputs")
+
+
+def profile_train_step(dev):
+    """(e) One full-width musicgen-medium train step (8 x 512 tokens) under
+    ``torch.profiler`` (``profiled``): device time by kernel against the
+    wall time; then the forward + backward and the AdamW update timed apart
+    (CUDA events)."""
+    import torch
+
+    from repro_torch import configs, tree
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import loss_fn
+    from repro_torch.optim import AdamWConfig, update
+
+    cfg = configs.get("musicgen-medium")
+    bundle = steps_lib.build_train_step(cfg, AdamWConfig(lr=1e-3),
+                                        total_steps=TRAIN_STEPS, device=dev)
+    state = bundle.init_state(0)
+    tokens = torch.from_numpy(SyntheticLM(DataConfig(
+        seed=0, vocab_size=cfg.vocab_size, seq_len=512,
+        global_batch=8)).batch(0)["tokens"]).to(dev)
+
+    def step():
+        nonlocal state
+        state, _ = bundle.step_fn(state, {"tokens": tokens})
+
+    profiled("train step", step, "musicgen-medium full width, 8 x 512 "
+             "tokens", 1)
+    leaves = tree.leaves(state["params"])
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, _ = loss_fn(state["params"], cfg, {"tokens": tokens})
+    grads = torch.autograd.grad(loss, leaves)
+    for p in leaves:
+        p.requires_grad_(False)
+    ev[1].record()
+    update(tree.unflatten(state["params"], grads), state["opt"],
+           state["params"], AdamWConfig(lr=1e-3), torch.tensor(
+               1e-4, device=dev))
+    ev[2].record()
+    torch.cuda.synchronize()
+    say("train", f"one full-width step apart: forward + backward "
+        f"{ev[0].elapsed_time(ev[1]):.1f} ms, AdamW update "
+        f"{ev[1].elapsed_time(ev[2]):.1f} ms")
+
+
+def smoke_train_losses(device, steps=3):
+    """(e) musicgen-medium SMOKE in float32: ``steps`` AdamW steps of the
+    train step from the CPU generator's weights and the pipeline's batches
+    on ``device``; returns the losses."""
+    import torch
+
+    from repro_torch import configs, tree
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.optim import AdamWConfig
+
+    cfg = configs.get_smoke("musicgen-medium")
+    bundle = steps_lib.build_train_step(cfg, AdamWConfig(lr=1e-3),
+                                        total_steps=steps, device=device)
+    state = tree.map_leaves(lambda t: t.to(device),
+                            steps_lib.init_train_state(cfg, 0, "cpu"))
+    data = SyntheticLM(DataConfig(seed=0, vocab_size=cfg.vocab_size,
+                                  seq_len=32, global_batch=2))
+    losses = []
+    for i in range(steps):
+        tokens = torch.from_numpy(data.batch(i)["tokens"]).to(device)
+        state, met = bundle.step_fn(state, {"tokens": tokens})
+        losses.append(float(met["loss"]))
+    return losses
+
+
+def phase_train(dev):
+    """Single-device training on the card.  (a) full-width musicgen-medium
+    (48 layers, d_model 1536, bf16, seeded random weights, 1.365 B
+    parameters) through ``launch.train.main``: ``TRAIN_STEPS`` steps of 8 x
+    512 tokens, checkpoints every ``TRAIN_SAVE_EVERY``: each step's loss,
+    grad norm and lr, the median step, tokens/s, model FLOPs and their share
+    of the bf16 dense peak, the peak memory against the bytes of parameters,
+    gradients and Adam state; finite losses, the mean of the last 3 below
+    the first 3 (the reference driver test's rule).  (b) The same directory
+    resumed to ``TRAIN_RESUME_STEPS``: the step-12 checkpoint restores to the
+    trained state bit for bit, exactly 6 new losses, step 18.  (c)
+    ``IMC_TRAIN_STEPS`` steps each with ``--imc-mode imc_analytic`` and
+    ``fakequant`` at the same shape.  (d) one layer's attention: the flash
+    Function against plain autograd.  (e) a profile of one full-width
+    step.  (f) the SMOKE train step, card against CPU in float32, losses at
+    rel 1e-5.  No kernel of the repo's TPU kernels runs in training
+    (counted)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs, tree
+    from repro_torch.models import param_bytes
+
+    reset_counts()
+    cfg = configs.get("musicgen-medium")
+    tokens = 8 * 512
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        free = shutil.disk_usage(root).free
+        say("train", f"checkpoints under a temporary directory, "
+            f"{free / 1e9:.0f} GB free")
+        ckpt = str(Path(root) / "run")
+        state, hist, peak, dt = train_run("full width", [
+            *TRAIN_ARGV, "--steps", str(TRAIN_STEPS), "--save-every",
+            str(TRAIN_SAVE_EVERY), "--ckpt-dir", ckpt])
+        losses = hist["loss"]
+        ms = step_report("full width", hist)
+        n_params = sum(t.numel() for t in tree.leaves(state["params"]))
+        p_bytes = param_bytes(state["params"])
+        state_bytes = 2 * p_bytes + 8 * n_params  # params, grads, m and v
+        flops = train_flops(cfg, n_params, 8, 512)
+        say("train", f"musicgen-medium full width, {n_params} parameters "
+            f"({p_bytes / 1e9:.3f} GB bf16), {TRAIN_STEPS} steps of {tokens} "
+            f"tokens in {dt:.1f} s (checkpoints included): median "
+            f"{ms:.1f} ms a step after the first, {tokens / ms * 1e3:.0f} "
+            f"tokens/s; model FLOPs a step {flops:.4e} (6 N tokens "
+            f"{6 * n_params * tokens:.4e} + attention), "
+            f"{flops / (ms / 1e3) / 1e12:.1f} TFLOP/s = "
+            f"{flops / (ms / 1e3) / BF16_FLOPS_PER_S:.3f} of the bf16 dense "
+            f"peak; peak memory {peak / 1e9:.2f} GB against "
+            f"{state_bytes / 1e9:.2f} GB of parameters, gradients and Adam "
+            f"state ({peak / state_bytes:.2f}x)")
+        if len(losses) != TRAIN_STEPS:
+            raise AssertionError(f"train: {len(losses)} losses")
+        if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+            raise AssertionError(f"train: the loss did not fall: {losses}")
+        n = check_resumed_state(ckpt, TRAIN_STEPS, state)
+        say("train", f"the step-{TRAIN_STEPS} checkpoint restores to the "
+            f"trained state bit for bit ({n} leaves)")
+        del state
+        # the resume reads the newest checkpoint; the older one only fills
+        # the disk
+        shutil.rmtree(Path(ckpt) / f"step_{TRAIN_SAVE_EVERY:08d}")
+        state, hist, _, dt = train_run("resume", [
+            *TRAIN_ARGV, "--steps", str(TRAIN_RESUME_STEPS), "--save-every",
+            str(TRAIN_SAVE_EVERY), "--ckpt-dir", ckpt])
+        if len(hist["loss"]) != TRAIN_RESUME_STEPS - TRAIN_STEPS or \
+                int(state["step"]) != TRAIN_RESUME_STEPS:
+            raise AssertionError(f"train: resume gave {hist['loss']} at step "
+                                 f"{int(state['step'])}")
+        ms = step_report("resume", hist)
+        say("train", f"resumed from step {TRAIN_STEPS} to "
+            f"{TRAIN_RESUME_STEPS}: {len(hist['loss'])} new losses in "
+            f"{dt:.1f} s, median {ms:.1f} ms a step")
+        del state
+        shutil.rmtree(ckpt)
+        for mode in ("imc_analytic", "fakequant"):
+            state, hist, peak, dt = train_run(mode, [
+                *TRAIN_ARGV, "--steps", str(IMC_TRAIN_STEPS), "--imc-mode",
+                mode, "--ckpt-dir", str(Path(root) / mode)])
+            ms = step_report(mode, hist)
+            say("train", f"--imc-mode {mode}: {IMC_TRAIN_STEPS} steps, "
+                f"median {ms:.1f} ms a step after the first, peak memory "
+                f"{peak / 1e9:.2f} GB, losses {hist['loss']}")
+            del state
+            shutil.rmtree(Path(root) / mode)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"train: a kernel launched in training: {counts}")
+    say("train", f"launches of the repo's kernels in training: {counts} "
+        f"(none by design: dynamic IMC modes run as plain tensor code, full "
+        f"sequences take flash attention)")
+
+    for shape in ATTN_SHAPES:
+        attention_fwd_bwd(dev, shape)
+    free_device()
+    profile_train_step(dev)
+    free_device()
+    want, got = smoke_train_losses("cpu"), smoke_train_losses(dev)
+    if not np.allclose(got, want, rtol=1e-5, atol=0):
+        raise AssertionError(f"train: SMOKE losses card {got} vs CPU {want}")
+    say("train", f"SMOKE float32 train steps, card against CPU: losses "
+        f"{got} vs {want}, largest relative difference "
+        f"{max(abs(g - w) / abs(w) for g, w in zip(got, want)):.2e}")
 
 
 # ---------------------------------------------------------------------------
@@ -2367,7 +2845,7 @@ def phase_parity(dev):
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch.serve import Request, serve
     from repro_torch.models import init_params
-    from repro_torch.models.model import tree_map
+    from repro_torch.tree import map_leaves
 
     def runner(cfg, params):
         def run(force):
@@ -2394,7 +2872,7 @@ def phase_parity(dev):
             cfg = cfg.replace(imc=IMCConfig(mode=mode, bx=7, bw=7, v_wl=0.7))
             ref = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 24))
             cfg = calibrate_model(cfg, params_cpu, [ref])
-        params_gpu = tree_map(lambda t: t.to(dev), params_cpu)
+        params_gpu = map_leaves(lambda t: t.to(dev), params_cpu)
         reset_counts()
         # the card runs once (A, unforced), so the counts are its launches;
         # musicgen-medium's runs stay strictly identical, as before; a
@@ -2629,7 +3107,7 @@ def overload_parity(dev):
     )
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import init_params
-    from repro_torch.models.model import tree_map
+    from repro_torch.tree import map_leaves
     from repro_torch.runtime.workload import VirtualClock, make_overload_config
 
     pt = optimize(n=512, snr_t_target_db=26.0, kinds=("qr",))
@@ -2637,7 +3115,7 @@ def overload_parity(dev):
     cfg = configs.get_smoke("musicgen-medium")
     cfg = cfg.replace(imc=substrate_for_design(pt))
     params_cpu = init_params(cfg, seed=0, device="cpu")
-    params_gpu = tree_map(lambda t: t.to(dev), params_cpu)
+    params_gpu = map_leaves(lambda t: t.to(dev), params_cpu)
     ref = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 32))
     cfg = calibrate_model(cfg, params_cpu, [ref])
     wcfg = make_overload_config(
@@ -2675,7 +3153,7 @@ def prefix_parity(dev):
     from repro_torch.core.substrate import calibrate_model
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import init_params
-    from repro_torch.models.model import tree_map
+    from repro_torch.tree import map_leaves
 
     for mode in ("digital", "imc_analytic", "imc_bitserial"):
         cfg = configs.get_smoke("musicgen-medium")
@@ -2685,7 +3163,7 @@ def prefix_parity(dev):
             ref = np.random.default_rng(1).integers(0, cfg.vocab_size,
                                                     (2, 24))
             cfg = calibrate_model(cfg, params_cpu, [ref])
-        params_gpu = tree_map(lambda t: t.to(dev), params_cpu)
+        params_gpu = map_leaves(lambda t: t.to(dev), params_cpu)
 
         def runner(params, cache, counters=True):
             def run(force):
@@ -2744,14 +3222,14 @@ def cli_parity(dev):
     import io
 
     from repro_torch.launch import serve as serve_mod
-    from repro_torch.models.model import tree_map
+    from repro_torch.tree import map_leaves
 
     init = serve_mod.init_params
 
     def runner(argv, device):
         def run(force):
             def params_via_cpu(cfg, seed=0, device=None):
-                return tree_map(lambda t: t.to(device),
+                return map_leaves(lambda t: t.to(device),
                                 init(cfg, seed=seed, device="cpu"))
 
             serve_mod.init_params = params_via_cpu
@@ -2789,7 +3267,7 @@ def cli_parity(dev):
 # ---------------------------------------------------------------------------
 
 BENCH_SUITES = ["fig4", "fig9", "fig10", "fig11", "fig12", "fig13", "pareto",
-                "site_snr", "kernel"]
+                "layer_snr", "site_snr", "kernel"]
 
 
 def phase_bench(dev):
@@ -2840,6 +3318,8 @@ def phase_bench(dev):
                                          f"{r['value']} vs E {e_a}")
                 say("bench", f"{r['name']}: S_A {r['value']} dB, E_A {e_a} "
                     "dB")
+    for r in payload["suites"]["layer_snr"]["records"]:
+        say("bench", f"{r['name']}: {r['value']} ({r['derived']})")
     kernel = payload["suites"]["kernel"]["records"]
     for r in kernel:
         if r["bench"] == "bitserial_summary":
@@ -3285,6 +3765,8 @@ def main() -> int:
     if "mesh" in phases:
         for k, v in phase_mesh().items():
             counts[k] = counts.get(k, 0) + v
+    if "train" in phases:
+        phase_train(dev)
     if "parity" in phases:
         phase_parity(dev)
     if "bench" in phases:

@@ -1,19 +1,27 @@
-"""Per-site SNR_T of a model's matmul sites under an MPC-style per-site
-output-ADC override map (the substrate API at layer scale).
+"""The paper's Fig. 2 question at model scale, and per-site SNR_T under an
+MPC-style per-site output-ADC override map (the substrate API at layer
+scale); the port of the reference's ``benchmarks/layer_snr.py``.
 
-``site_snr_records`` is deterministic closed forms, no model execution.  The
-reference's whole-model SNR sweep (``whole_model_snr_sweep``: cross-entropy
-under noise injected into every layer of gemma2-9b and mamba2-2.7b) needs
-``loss_fn``, which is not ported yet.
+``whole_model_snr_sweep`` runs a SMOKE model with every matmul on the
+analytic IMC substrate (all layers noisy) at a ladder of SNR_a levels and
+records the training loss against the noiseless baseline.  The reference
+draws its noise from ``jax.random``; the port from seeded torch generators
+(``linear``'s per-site seeds), so the noisy losses agree statistically, the
+baseline exactly.  ``site_snr_records`` is deterministic closed forms, no
+model execution.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Tuple
+
+import numpy as np
+import torch
 
 from repro_torch import configs
 from repro_torch.core.design import optimize, with_b_adc
+from repro_torch.core.imc_linear import layer_rng
 from repro_torch.core.mapping import per_token_matmul_shapes
-from repro_torch.core.substrate import substrate_for_design
+from repro_torch.core.substrate import AnalyticIMC, substrate_for_design
 from repro_torch.launch.metering import (
     energy_for_tokens,
     substrate_energy_for_tokens,
@@ -26,10 +34,75 @@ from repro_torch.launch.metering import (
 OVERRIDE_EXTRA_BITS = {"lm_head": 2, "attn": 1}
 
 
-def whole_model_snr_sweep(*args, **kwargs):
-    raise NotImplementedError(
-        "whole_model_snr_sweep is not ported to PyTorch yet: it needs "
-        "loss_fn (ROADMAP: queue 1, training)")
+Row = Tuple[str, float, str]
+SWEEP_ARCHS = ("gemma2-9b", "mamba2-2.7b")
+
+
+def _loss(cfg, params, batch, rng=None) -> float:
+    from repro_torch.models import loss_fn
+
+    with torch.no_grad():
+        return float(loss_fn(params, cfg, batch, rng=rng)[0])
+
+
+def whole_model_losses(arch: str = "gemma2-9b", b: int = 4, s: int = 128,
+                       levels=(10.0, 16.0, 22.0, 28.0, 34.0, 40.0),
+                       device=None, params=None, batch=None):
+    """(the noiseless loss, [(snr, mean loss over 3 noise seeds)]) of
+    ``arch``'s SMOKE config with every matmul on ``AnalyticIMC(bx=8, bw=8,
+    snr_a_db=snr)``.  ``params`` and ``batch`` default to seeded draws
+    (seed 0 weights, seed 1 tokens of shape (b, s)) on ``device`` (None:
+    the card, raising without one)."""
+    from repro_torch.models import resolve_device
+
+    cfg = configs.get_smoke(arch)
+    dev = resolve_device(device)
+    if params is None:
+        from repro_torch.models import init_params
+
+        params = init_params(cfg, seed=0, device=dev)
+    if batch is None:
+        gen = torch.Generator(device=dev).manual_seed(1)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                         generator=gen, device=dev)}
+        if cfg.modality == "vlm":
+            batch["prefix_embeds"] = torch.randn(
+                (b, cfg.prefix_len, cfg.d_model), generator=gen, device=dev)
+    base = _loss(cfg, params, batch)
+    noisy = []
+    for snr in levels:
+        noisy_cfg = cfg.replace(imc=AnalyticIMC(bx=8, bw=8, snr_a_db=snr))
+        ce = np.mean([_loss(noisy_cfg, params, batch, rng=layer_rng(3, i))
+                      for i in range(3)])
+        noisy.append((snr, float(ce)))
+    return base, noisy
+
+
+def whole_model_snr_sweep(arch: str = "gemma2-9b", b: int = 4, s: int = 128,
+                          levels=(10.0, 16.0, 22.0, 28.0, 34.0, 40.0),
+                          device=None, params=None, batch=None) -> List[Row]:
+    """The reference's rows of :func:`whole_model_losses`: the baseline,
+    then each level's loss and its degradation dCE."""
+    base, noisy = whole_model_losses(arch, b, s, levels, device, params,
+                                     batch)
+    rows: List[Row] = [(f"layer_snr/{arch}/fp_ce", round(base, 4),
+                        "baseline")]
+    for snr, ce in noisy:
+        rows.append((
+            f"layer_snr/{arch}/ce_at_{snr:.0f}dB",
+            round(ce, 4),
+            f"dCE={ce-base:+.4f} (req: small at >=24 dB, paper SSIII-B)",
+        ))
+    return rows
+
+
+def run(device=None) -> List[Row]:
+    """The ``layer_snr`` suite: the sweep for each of ``SWEEP_ARCHS`` on
+    ``device`` (None: the card, raising without one)."""
+    rows: List[Row] = []
+    for arch in SWEEP_ARCHS:
+        rows += whole_model_snr_sweep(arch, device=device)
+    return rows
 
 
 def site_snr_records(arch: str = "musicgen-medium", snr_t_db: float = 14.0,

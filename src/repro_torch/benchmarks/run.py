@@ -1,9 +1,10 @@
 """The port's benchmark orchestrator: one entry per paper figure/table, the
-per-site SNR map and the kernel micro-bench.  Prints ``name,value,derived``
-CSV rows and writes a machine-readable JSON report::
+whole-model SNR sweep, the per-site SNR map and the kernel micro-bench.
+Prints ``name,value,derived`` CSV rows and writes a machine-readable JSON
+report::
 
     python -m repro_torch.benchmarks.run --json PATH \
-        --only fig4,fig9,fig10,fig11,fig12,fig13,pareto,site_snr,kernel
+        --only fig4,fig9,fig10,fig11,fig12,fig13,pareto,layer_snr,site_snr,kernel
 
 Runs on the card unless ``--device cpu`` is given (the MC overlays and the
 kernel bench then run their plain versions on the CPU, and kernel times are
@@ -32,9 +33,9 @@ from repro_torch.core import mc
 SCHEMA = "repro-imc-torch-bench/v1"
 DEFAULT_JSON = Path(__file__).resolve().parents[3] / "build" / "bench" / \
     "bench_torch.json"
-SUITES = (*paper_figures.ALL, "site_snr", "kernel")
+SUITES = (*paper_figures.ALL, "layer_snr", "site_snr", "kernel")
 # the reference's suites that wait for later slices of the port
-NOT_PORTED = ("layer_snr", "model_energy", "serve", "serve_energy",
+NOT_PORTED = ("model_energy", "serve", "serve_energy",
               "serve_sharded", "serve_prefix", "roofline")
 
 
@@ -63,6 +64,9 @@ def suite_fns(device: torch.device) -> Dict[str, Callable]:
         else:
             fns[name] = (lambda fig=fig: (None, fig()))
 
+    def layer_snr_suite():
+        return None, layer_snr.run(device)
+
     def site_snr():
         records = layer_snr.site_snr_records()
         return records, layer_snr.site_snr_rows(records)
@@ -71,6 +75,7 @@ def suite_fns(device: torch.device) -> Dict[str, Callable]:
         records = kernel_bench.bench_records(device)
         return records, kernel_bench.rows_from_records(records)
 
+    fns["layer_snr"] = layer_snr_suite
     fns["site_snr"] = site_snr
     fns["kernel"] = kernel
     return fns

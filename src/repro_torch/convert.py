@@ -8,6 +8,9 @@ After conversion both packages compute the same function.  bfloat16 leaves
 (numpy's ``ml_dtypes`` bfloat16) are carried bit for bit.  With a
 ``launch.mesh.Mesh`` the tree comes back as this rank's shard
 (``launch.sharding.shard_params``), the input of ``Engine(mesh=)``.
+``opt_state_from_jax`` carries the reference's AdamW state (``OptState``:
+``m``, ``v``, ``count``) into the port's, so both packages can take the same
+optimizer step.
 """
 from __future__ import annotations
 
@@ -39,3 +42,15 @@ def params_from_jax(tree: Dict[str, Any], device, cfg=None,
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     return tensor_from_numpy(tree, torch.device(device))
+
+
+def opt_state_from_jax(state, device):
+    """The port's ``optim.adamw.OptState`` for the reference's (its ``m``
+    and ``v`` trees and ``count``, as numpy arrays or anything
+    ``np.asarray`` accepts)."""
+    from repro_torch.optim.adamw import OptState
+
+    dev = torch.device(device)
+    return OptState(m=params_from_jax(state.m, dev),
+                    v=params_from_jax(state.v, dev),
+                    count=tensor_from_numpy(state.count, dev))

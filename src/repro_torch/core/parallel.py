@@ -12,12 +12,13 @@ Every rank runs the same host loop, so the collectives line up: each one
 is reached by every rank of the group in the same order.  All-reduce and
 all-gather give every rank the same bits, so every decision that follows
 from a gathered or reduced tensor (greedy tokens, dynamic quantizer
-ranges) agrees across ranks.
+ranges) agrees across ranks.  A sum adds the ranks' tensors in rank order
+(:meth:`ShardGroup.sum`), so its bits do not depend on the backend.
 
 Backend rule: ranks with a card each talk over NCCL; ranks that share a
 device (the CPU, or one card time-shared by several processes) over gloo.
 Gloo takes every collective used here on CUDA tensors as well (all-reduce
-of sum and max, all-gather into one tensor; checked on torch 2.11 by
+of max, all-gather into one tensor; checked on torch 2.11 by
 ``chip_smoke.py``'s ``mesh`` phase), so nothing is copied through host
 memory.
 """
@@ -51,9 +52,22 @@ class ShardGroup:
     row_columns: frozenset = frozenset()
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
-        """All-reduce sum, in place; returns ``t``."""
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
-        return t
+        """All-reduce sum in rank order, in place; returns ``t``.
+
+        The ranks' tensors are gathered and added as ``((t0 + t1) + t2) +
+        ...``: one fixed float expression whatever the backend, where an
+        all-reduce adds in an order of its own (gloo's ring order changes
+        from chunk to chunk).  So one device that splits a dot product the
+        same way gives the same bits (``chip_smoke.py``'s ``mesh`` phase)."""
+        flat = t.reshape(-1).contiguous()
+        parts = torch.empty(self.size * flat.numel(), dtype=t.dtype,
+                            device=t.device)
+        dist.all_gather_into_tensor(parts, flat, group=self.group)
+        parts = parts.view(self.size, -1)
+        acc = parts[0].clone()
+        for part in parts[1:]:
+            acc.add_(part)
+        return t.copy_(acc.view(t.shape))
 
     def max(self, t: torch.Tensor) -> torch.Tensor:
         """All-reduce max of a tensor (a dynamic range); returns a copy."""

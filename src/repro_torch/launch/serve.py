@@ -128,9 +128,9 @@ from repro_torch.models import (
     prefill,
     resolve_device,
 )
-from repro_torch.models.model import tree_map
 from repro_torch.runtime import fault as fault_lib
 from repro_torch.runtime.prefix_cache import PrefixCache
+from repro_torch.tree import map_leaves
 
 log = logging.getLogger("repro_torch.serve")
 
@@ -422,7 +422,7 @@ class Engine:
         # every layer group's cache with a leading layer axis: the pattern
         # positions' stacked leaves, and views of each remainder layer's
         self._groups = list(cache["blocks"].values()) + [
-            tree_map(lambda t: t[None], c)
+            map_leaves(lambda t: t[None], c)
             for c in cache.get("tail", {}).values()]
         # this rank's pools; head-sharded pools hold 1/tp of the whole
         self._block_bytes, self._fixed_kv_bytes = self._kv_accounting()
@@ -812,7 +812,7 @@ class Engine:
         rows = torch.as_tensor(bt_rows, device=dev)
         r = len(slot_ids)
         prefs = list(cache1["blocks"].values()) + [
-            tree_map(lambda t: t[None], cache1["tail"][k])
+            map_leaves(lambda t: t[None], cache1["tail"][k])
             for k in self.cache.get("tail", {})]
         for eng, pref in zip(self._groups, prefs):
             if "pk" not in eng:

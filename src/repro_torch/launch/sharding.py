@@ -31,6 +31,7 @@ from repro_torch.core import parallel
 from repro_torch.core import substrate as substrate_lib
 from repro_torch.launch.mesh import axis_size
 from repro_torch.models import model
+from repro_torch.tree import keystr, map_with_path, walk
 
 
 def _entry(e):
@@ -108,15 +109,6 @@ def param_spec(path: str, ndim: int, stacked: bool) -> Tuple:
     return P(*(entries + [None] * ndim)[:ndim])
 
 
-def _walk(tree, path=()):
-    """(path tuple, leaf) of every leaf of a nested dict, in order."""
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _walk(v, path + (k,))
-    else:
-        yield path, tree
-
-
 def tree_param_specs(params, stacked_prefixes: Tuple[str, ...] = ("blocks",)):
     """The spec of every leaf of a parameter tree, by path."""
 
@@ -125,20 +117,15 @@ def tree_param_specs(params, stacked_prefixes: Tuple[str, ...] = ("blocks",)):
         stacked = any(pstr.startswith(p) for p in stacked_prefixes)
         return param_spec(pstr, leaf.dim(), stacked)
 
-    return model.tree_map_path(visit, params)
-
-
-def keystr(path) -> str:
-    """A leaf's path as the reference's ``jax.tree_util.keystr`` writes it."""
-    return "".join(f"[{k!r}]" for k in path)
+    return map_with_path(visit, params)
 
 
 def validate_divisibility(params, specs, mesh) -> list:
     """(path, shape, spec) of every leaf whose sharded dimension does not
     divide evenly over its axes."""
-    flat_specs = dict(_walk(specs))
+    flat_specs = dict(walk(specs))
     issues = []
-    for path, leaf in _walk(params):
+    for path, leaf in walk(params):
         spec = flat_specs[path]
         for dim, entry in enumerate(spec):
             if entry is None:
@@ -155,7 +142,7 @@ def validate_divisibility(params, specs, mesh) -> list:
 
 def fallback_replicate(specs, issues_paths):
     """``specs`` with full replication at the given (keystr) paths."""
-    return model.tree_map_path(lambda path, spec: (
+    return map_with_path(lambda path, spec: (
         P() if keystr(path) in issues_paths else spec), specs)
 
 
@@ -225,14 +212,14 @@ def shard_params(params, cfg, mesh):
     tp = axis_size(mesh, "model")
     if tp == 1:
         return params
-    specs = model.tree_map_path(lambda path, leaf: serve_param_spec(
+    specs = map_with_path(lambda path, leaf: serve_param_spec(
         cfg, tp, path, leaf.dim(), path[0] == "blocks"), params)
     issues = validate_divisibility(params, specs, mesh)
     if issues:
         raise ValueError(f"sharded dimensions do not divide the {tp}-way "
                          f"model axis: {issues}")
-    flat = dict(_walk(specs))
-    return model.tree_map_path(lambda path, leaf: shard_tensor(
+    flat = dict(walk(specs))
+    return map_with_path(lambda path, leaf: shard_tensor(
         leaf, flat[path], mesh.rank, tp), params)
 
 

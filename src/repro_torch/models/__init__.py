@@ -6,6 +6,7 @@ from repro_torch.models.model import (  # noqa: F401
     forward,
     init_paged_cache,
     init_params,
+    loss_fn,
     param_bytes,
     prefill,
     resolve_device,

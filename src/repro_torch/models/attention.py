@@ -10,7 +10,10 @@ card, its plain walk on the CPU) or the gather escape hatch
 (``decode_attn="gather"``) that materializes ``pool[bt]`` and runs a full-row
 softmax.  Both follow the garbage-block-0 write routing.  The pools are
 updated IN PLACE (a per-step copy of a multi-GB pool would dominate decode);
-so are the contiguous caches.  The flash backward waits for a later slice.
+so are the contiguous caches.  Flash attention has the reference's
+recompute-based backward (``_FlashCore``, a ``torch.autograd.Function``);
+banded attention is differentiated by autograd, as the reference's has no
+custom VJP.
 """
 from __future__ import annotations
 
@@ -86,15 +89,22 @@ def _scores(q_blk, k_blk, dims: AttnDims):
     return s
 
 
-def flash_attention(q, k, v, dims: AttnDims):
-    """Blocked causal attention with an online softmax over KV blocks.
+def _block_mask(q_pos, k_pos, window):
+    mask = q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        mask = mask & (q_pos[:, None] - k_pos[None, :] < window)
+    return mask
 
-    q: (B, S, Hq, hd); k, v: (B, S, Hkv, hd).  Returns (B, S, Hq, hd).  KV
-    blocks wholly in a q block's future are skipped: they would add p = 0
-    and a correction of 1, so the result is unchanged.  ``dims.window``
-    masks keys ``window`` or more positions back (the reference's
-    ``_block_mask``).
-    """
+
+def flash_forward(q, k, v, dims: AttnDims):
+    """Blocked causal attention with an online softmax over KV blocks, in
+    plain tensor ops (autograd can differentiate it, keeping every score
+    block).  q: (B, S, Hq, hd); k, v: (B, S, Hkv, hd).  Returns (out
+    (B, S, Hkv, G, hd) in q's dtype, lse (B, Hkv, G, S) float32, the log of
+    each row's softmax denominator).  KV blocks wholly in a q block's future
+    are skipped: they would add p = 0 and a correction of 1, so the result
+    is unchanged.  ``dims.window`` masks keys ``window`` or more positions
+    back (the reference's ``_block_mask``)."""
     b, s_q, hq, hd = q.shape
     s_kv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -103,11 +113,12 @@ def flash_attention(q, k, v, dims: AttnDims):
     dev = q.device
     qg = q.reshape(b, s_q, hkv, g, hd)
     out = torch.empty((b, s_q, hkv, g, hd), dtype=q.dtype, device=dev)
+    lse = torch.empty((b, hkv, g, s_q), dtype=torch.float32, device=dev)
     for iq in range(n_q):
         q0, q1 = iq * qb, min((iq + 1) * qb, s_q)
         q_blk = qg[:, q0:q1]
         nq = q1 - q0
-        q_pos = torch.arange(q0, q0 + qb, device=dev)[:nq]
+        q_pos = torch.arange(q0, q1, device=dev)
         m = torch.full((b, hkv, g, nq), NEG_INF, dtype=torch.float32,
                        device=dev)
         l = torch.zeros((b, hkv, g, nq), dtype=torch.float32, device=dev)
@@ -118,10 +129,8 @@ def flash_attention(q, k, v, dims: AttnDims):
             if k0 > q1 - 1:
                 break  # every later KV block is in the future of this block
             s = _scores(q_blk, k[:, k0:k1], dims)
-            k_pos = torch.arange(k0, k1, device=dev)
-            mask = q_pos[:, None] >= k_pos[None, :]
-            if dims.window is not None:
-                mask = mask & (q_pos[:, None] - k_pos[None, :] < dims.window)
+            mask = _block_mask(q_pos, torch.arange(k0, k1, device=dev),
+                               dims.window)
             s = torch.where(mask, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
@@ -133,7 +142,92 @@ def flash_attention(q, k, v, dims: AttnDims):
             m = m_new
         o = acc / torch.clamp(l[..., None], min=1e-30)  # (B, Hkv, G, QB, hd)
         out[:, q0:q1] = o.permute(0, 3, 1, 2, 4).to(q.dtype)
-    return out.reshape(b, s_q, hq, hd)
+        lse[..., q0:q1] = m + torch.log(torch.clamp(l, min=1e-30))
+    return out, lse
+
+
+def flash_backward(q, k, v, out, lse, dout, dims: AttnDims):
+    """The reference's recompute-based flash backward (``_flash_bwd``),
+    block by block: each score block is recomputed from q, k and the saved
+    ``lse``, so memory stays O(block).  Shapes as :func:`flash_forward`'s;
+    ``dout`` is (B, S, Hkv, G, hd).  Returns (dq (B, S, Hq, hd), dk, dv) in
+    the inputs' dtypes, accumulated in float32 (dk and dv summed over the G
+    query heads of each KV head)."""
+    b, s_q, hq, hd = q.shape
+    s_kv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qb, kb = min(dims.q_block, s_q), min(dims.kv_block, s_kv)
+    n_q, n_kv = -(-s_q // qb), -(-s_kv // kb)
+    dev = q.device
+    f32 = torch.float32
+    qg = q.reshape(b, s_q, hkv, g, hd)
+    dout = dout.to(f32)
+    # D = rowsum(dout * out): (B, Hkv, G, S)
+    dmat = torch.einsum("bshgd,bshgd->bhgs", dout, out.to(f32))
+    dq = torch.zeros((b, s_q, hkv, g, hd), dtype=f32, device=dev)
+    dk = torch.zeros((b, s_kv, hkv, hd), dtype=f32, device=dev)
+    dv = torch.zeros((b, s_kv, hkv, hd), dtype=f32, device=dev)
+    for iq in range(n_q):
+        q0, q1 = iq * qb, min((iq + 1) * qb, s_q)
+        q_blk, do_blk = qg[:, q0:q1], dout[:, q0:q1]
+        lse_blk, d_blk = lse[..., q0:q1, None], dmat[..., q0:q1, None]
+        q_pos = torch.arange(q0, q1, device=dev)
+        for jk in range(n_kv):
+            k0, k1 = jk * kb, min((jk + 1) * kb, s_kv)
+            if k0 > q1 - 1:
+                break  # wholly in the future: p = 0, no gradient
+            k_blk, v_blk = k[:, k0:k1].to(f32), v[:, k0:k1].to(f32)
+            masked = ~_block_mask(q_pos, torch.arange(k0, k1, device=dev),
+                                  dims.window)
+            # one score-block-sized buffer at a time where it can be: the
+            # block ops below run in place (no autograd here)
+            s = _scores(q_blk, k_blk, dims).masked_fill_(masked, NEG_INF)
+            p = (s - lse_blk).exp_()  # (B, Hkv, G, QB, KB)
+            if dims.softcap_val is None:
+                del s
+            dv[:, k0:k1] += torch.einsum("bhgqk,bqhgd->bkhd", p, do_blk)
+            ds = torch.einsum("bqhgd,bkhd->bhgqk", do_blk, v_blk)  # dp
+            ds.sub_(d_blk).mul_(p)
+            del p
+            if dims.softcap_val is not None:
+                # d/ds_raw of c*tanh(s_raw/c) = 1 - (s_capped/c)^2, on a
+                # mask-safe s (masked lanes have p = 0 but 0 * inf = nan)
+                s.masked_fill_(masked, 0.0).div_(dims.softcap_val)
+                ds.mul_(s.square_().neg_().add_(1.0))
+                del s
+            ds.mul_(dims.scale).masked_fill_(masked, 0.0)
+            dq[:, q0:q1] += torch.einsum("bhgqk,bkhd->bqhgd", ds, k_blk)
+            dk[:, k0:k1] += torch.einsum("bhgqk,bqhgd->bkhd", ds,
+                                         q_blk.to(f32))
+    return (dq.reshape(b, s_q, hq, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class _FlashCore(torch.autograd.Function):
+    """Flash attention with the reference's custom VJP: the forward saves
+    only q, k, v, the output and the row log-sum-exps, and the backward
+    recomputes each score block (``flash_backward``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, dims):
+        out, lse = flash_forward(q, k, v, dims)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.dims = dims
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, out, lse, dout, ctx.dims)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, dims: AttnDims):
+    """Blocked causal attention, O(S * KB) memory, with a true flash
+    (recompute-based) backward.  q: (B, S, Hq, hd); k, v: (B, S, Hkv, hd).
+    Returns (B, S, Hq, hd)."""
+    out = _FlashCore.apply(q, k, v, dims)
+    return out.reshape(q.shape)
 
 
 def banded_attention(q, k, v, dims: AttnDims):

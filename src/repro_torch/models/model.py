@@ -1,4 +1,4 @@
-"""Top-level LM: init, forward, prefill and paged decode.
+"""Top-level LM: init, forward, the training loss, prefill and paged decode.
 
 Parameters mirror the JAX reference's tree: each pattern position's blocks
 are stacked along a leading layer axis under ``params["blocks"]["p{i}"]``
@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import parallel
@@ -26,6 +27,7 @@ from repro_torch.models.layers import (
     sinusoidal_positions,
     softcap,
 )
+from repro_torch.tree import map_leaves, map_with_path, walk
 
 
 def resolve_device(device=None) -> torch.device:
@@ -39,29 +41,14 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-def tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def layer_params(stacked, li: int):
     """Layer ``li``'s view of a stacked parameter (or cache) subtree."""
-    return tree_map(lambda t: t[li], stacked)
+    return map_leaves(lambda t: t[li], stacked)
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-
-
-def _leaves(path, sub):
-    """(path, tensor) for every leaf of ``sub`` found at ``path``."""
-    if isinstance(sub, dict):
-        for k, v in sub.items():
-            yield from _leaves(path + (k,), v)
-    else:
-        yield path, sub
 
 
 def _get(tree, path):
@@ -113,7 +100,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
         for li in range(n_full):
             for path, sub in tf.init_block_parts(gen, cfg, kind, dtype,
                                                  device):
-                for leaf_path, t in _leaves(path, sub):
+                for leaf_path, t in walk(sub, path):
                     t = shard(("blocks", f"p{pi}") + leaf_path, t)
                     if li == 0:
                         tf.put(stacked, leaf_path, torch.empty(
@@ -125,18 +112,11 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
     params["blocks"] = blocks
     if cfg.tail_kinds:
         params["tail"] = {
-            f"t{ti}": tree_map_path(
+            f"t{ti}": map_with_path(
                 lambda p, t, ti=ti: shard(("tail", f"t{ti}") + p, t),
                 tf.init_block(gen, cfg, kind, dtype, device))
             for ti, kind in enumerate(cfg.tail_kinds)}
     return params
-
-
-def tree_map_path(fn, tree, path=()):
-    """``tree_map`` with each leaf's tuple path as ``fn``'s first argument."""
-    if isinstance(tree, dict):
-        return {k: tree_map_path(fn, v, path + (k,)) for k, v in tree.items()}
-    return fn(path, tree)
 
 
 def param_bytes(params) -> int:
@@ -164,7 +144,7 @@ def init_paged_cache(cfg: ArchConfig, batch: int, cache_len: int,
         one = tf.init_block_cache_paged(cfg, kind, batch, cache_len, dtype,
                                         num_blocks, block_size, device)
         # every leaf starts at zero: allocate the stacked leaves directly
-        cache["blocks"][f"p{pi}"] = tree_map(
+        cache["blocks"][f"p{pi}"] = map_leaves(
             lambda t: torch.zeros((n_full,) + tuple(t.shape), dtype=t.dtype,
                                   device=t.device), one)
     for ti, kind in enumerate(cfg.tail_kinds):
@@ -255,7 +235,9 @@ def _run_full(params, cfg: ArchConfig, x, positions, rng, want_cache: bool,
     caches, tail caches)."""
     per_pos = {f"p{pi}": [] for pi in range(len(cfg.pattern))}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for li in range(cfg.n_full_cycles):
+
+    def cycle(x, li):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for pi, kind in enumerate(cfg.pattern):
             r = layer_rng(layer_rng(rng, pi), li)
             x, c, a = tf.apply_block_full(
@@ -264,6 +246,18 @@ def _run_full(params, cfg: ArchConfig, x, positions, rng, want_cache: bool,
             aux = aux + a
             if want_cache:
                 per_pos[f"p{pi}"].append(c)
+        return x, aux
+
+    # training: each cycle's activations are recomputed in the backward
+    # pass, not kept (the reference's jax.checkpoint of the cycle)
+    remat = cfg.remat and not want_cache and torch.is_grad_enabled()
+    for li in range(cfg.n_full_cycles):
+        if remat:
+            x, a = torch.utils.checkpoint.checkpoint(
+                cycle, x, li, use_reentrant=False)
+        else:
+            x, a = cycle(x, li)
+        aux = aux + a
     tail = {}
     for ti, kind in enumerate(cfg.tail_kinds):
         x, c, a = tf.apply_block_full(
@@ -285,6 +279,26 @@ def forward(params, cfg: ArchConfig, tokens, prefix_embeds=None,
     x = _embed_inputs(params, cfg, tokens, prefix_embeds, positions)
     x, aux, _, _ = _run_full(params, cfg, x, positions, rng, False, 0)
     return _head(params, cfg, x), aux
+
+
+def loss_fn(params, cfg: ArchConfig, batch: Dict[str, Any],
+            rng: Optional[int] = None, aux_coef: float = 0.01,
+            z_coef: float = 1e-4):
+    """Next-token cross entropy (in float32) + ``aux_coef`` x the MoE aux
+    loss + ``z_coef`` x mean(logz^2), the reference's ``loss_fn``.
+    ``batch`` holds ``tokens`` (B, S) and, for a vlm, ``prefix_embeds``.
+    Returns (loss, {"ce", "moe_aux", "z_loss"})."""
+    tokens = batch["tokens"]
+    logits, aux = forward(params, cfg, tokens, batch.get("prefix_embeds"),
+                          rng)
+    targets = tokens[:, 1:].to(torch.int64)
+    lg = logits[:, :-1].to(torch.float32)
+    logz = torch.logsumexp(lg, dim=-1)
+    ll = torch.gather(lg, -1, targets[..., None])[..., 0] - logz
+    ce = -torch.mean(ll)
+    z_loss = torch.mean(logz**2)
+    loss = ce + aux_coef * aux + z_coef * z_loss
+    return loss, {"ce": ce, "moe_aux": aux, "z_loss": z_loss}
 
 
 def prefill(params, cfg: ArchConfig, tokens, cache_len: int,

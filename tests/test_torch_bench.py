@@ -193,8 +193,18 @@ def test_site_snr_records_equal_reference():
 
 
 def test_whole_model_snr_sweep_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        layer_snr.whole_model_snr_sweep()
+    """(Named when the sweep raised.)  The sweep is ported, and like every
+    entry point of the port it runs on the card unless given a device: with
+    none it raises where PyTorch sees no GPU, before it builds a model.
+    tests/test_torch_train.py holds its rows and values on the CPU against
+    the JAX package."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    for call in (lambda: layer_snr.whole_model_snr_sweep("mamba2-2.7b", b=1,
+                                                         s=8, levels=(40.0,)),
+                 layer_snr.run):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_mc_convergence_records():
@@ -265,7 +275,7 @@ def test_run_writes_a_report_for_the_fast_suites(tmp_path):
 
 
 @pytest.mark.parametrize("only,exc", [("serve", NotImplementedError),
-                                      ("fig4,layer_snr", NotImplementedError),
+                                      ("fig4,model_energy", NotImplementedError),
                                       ("roofline", NotImplementedError),
                                       ("fig99", KeyError)])
 def test_run_refuses_unported_and_unknown_suites(only, exc, tmp_path):

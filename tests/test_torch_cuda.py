@@ -627,10 +627,10 @@ def _smoke_engine(dev, **kw):
     from repro_torch import configs
     from repro_torch.launch.serve import Engine
     from repro_torch.models import init_params
-    from repro_torch.models.model import tree_map
+    from repro_torch.tree import map_leaves
 
     cfg = configs.get_smoke("musicgen-medium")
-    params = tree_map(lambda t: t.to(dev),
+    params = map_leaves(lambda t: t.to(dev),
                       init_params(cfg, seed=0, device="cpu"))
     return Engine(cfg, params, batch_slots=4, cache_len=48, max_chunk=4,
                   **kw)
@@ -881,9 +881,9 @@ def _tp_case(mode):
 
 def _tp_serve(cfg, params, reqs, mesh=None):
     from repro_torch.launch.serve import Engine, serve
-    from repro_torch.models.model import tree_map
+    from repro_torch.tree import map_leaves
 
-    params = tree_map(lambda t: t.to("cuda"), params)
+    params = map_leaves(lambda t: t.to("cuda"), params)
     eng = Engine(cfg, params, batch_slots=4, cache_len=40, max_chunk=4,
                  mesh=mesh)
     return {r.rid: r.out for r in serve(eng, reqs)}
@@ -899,3 +899,79 @@ def test_two_ranks_sharing_the_card_match_one_device(dev, mode):
     cfg, params, reqs = _tp_case(mode)
     want = _tp_serve(cfg, params, reqs)
     assert mesh_lib.launch(2, "gloo", _two_rank_tokens, mode) == want
+
+
+# ---------------------------------------------------------------------------
+# training: the train step, the flash backward, checkpoints of card tensors
+# ---------------------------------------------------------------------------
+
+
+def _smoke_train_losses(device, steps=3):
+    from repro_torch import configs, tree
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.optim import AdamWConfig
+
+    cfg = configs.get_smoke("musicgen-medium")
+    bundle = steps_lib.build_train_step(cfg, AdamWConfig(lr=1e-3),
+                                        total_steps=steps, device=device)
+    # the same weights on both devices: the CPU generator's draws
+    state = tree.map_leaves(lambda t: t.to(device),
+                            steps_lib.init_train_state(cfg, 0, "cpu"))
+    data = SyntheticLM(DataConfig(seed=0, vocab_size=cfg.vocab_size,
+                                  seq_len=32, global_batch=2))
+    losses = []
+    for i in range(steps):
+        tokens = torch.from_numpy(data.batch(i)["tokens"]).to(device)
+        state, met = bundle.step_fn(state, {"tokens": tokens})
+        losses.append(float(met["loss"]))
+    return losses, state
+
+
+def test_smoke_train_step_on_card_matches_cpu(dev):
+    """musicgen-medium SMOKE in float32, three AdamW steps from the same
+    weights and batches: the card's losses equal the CPU's at rel 1e-5."""
+    want, _ = _smoke_train_losses("cpu")
+    got, state = _smoke_train_losses(dev)
+    assert state["params"]["embed"].is_cuda
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+def test_flash_function_on_card_matches_plain_autograd(dev):
+    """The recompute backward against autograd through the blocked forward,
+    float32 on the card, GQA with softcap and a ragged last block."""
+    from repro_torch.models import attention as attn
+
+    dims = attn.AttnDims(n_heads=8, n_kv=2, head_dim=64, scale=0.125,
+                         softcap_val=50.0, window=None, q_block=64,
+                         kv_block=64, rope_theta=1e4, use_rope=False)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn((2, 150, h, 64), generator=gen, device=dev)
+               .requires_grad_() for h in (8, 2, 2))
+    dout = torch.randn((2, 150, 8, 64), generator=gen, device=dev)
+    grads_f = torch.autograd.grad(attn.flash_attention(q, k, v, dims),
+                                  (q, k, v), dout)
+    plain = attn.flash_forward(q, k, v, dims)[0].reshape(q.shape)
+    grads_p = torch.autograd.grad(plain, (q, k, v), dout)
+    for gf, gp in zip(grads_f, grads_p):
+        assert gf.is_cuda
+        err = (gf - gp).abs().max() / gp.abs().max()
+        assert float(err) <= 1e-5
+
+
+def test_async_save_of_card_tensors(dev, tmp_path):
+    """An async save of CUDA tensors (bf16 and float32) followed by an
+    in-place change restores the values from before the change."""
+    from repro_torch.checkpoint import manager as ckpt
+
+    w = torch.randn((64, 64), device=dev).to(torch.bfloat16)
+    m = torch.randn((64, 64), device=dev)
+    w0, m0 = w.clone(), m.clone()
+    saver = ckpt.AsyncSaver()
+    saver.save(str(tmp_path), 1, {"w": w, "m": m})
+    w.add_(1.0)
+    m.mul_(2.0)
+    saver.wait()
+    got, _ = ckpt.restore(str(tmp_path), 1, {"w": w, "m": m})
+    assert got["w"].is_cuda and got["w"].dtype == torch.bfloat16
+    assert torch.equal(got["w"], w0) and torch.equal(got["m"], m0)

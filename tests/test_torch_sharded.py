@@ -41,7 +41,7 @@ from repro_torch.launch import mesh as t_mesh
 from repro_torch.launch import serve as t_serve
 from repro_torch.launch import sharding as t_shd
 from repro_torch.models import init_params as t_init_params
-from repro_torch.models.model import tree_map_path
+from repro_torch.tree import map_with_path, walk
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TP = 4
@@ -102,7 +102,7 @@ def test_param_specs_and_divisibility_match_reference(arch):
     tspecs = t_shd.tree_param_specs(ttree)
     flat_j = jax.tree_util.tree_flatten_with_path(
         jspecs, is_leaf=lambda x: isinstance(x, j_shd.P))[0]
-    assert len(flat_j) == len(list(t_shd._walk(tspecs)))
+    assert len(flat_j) == len(list(walk(tspecs)))
     for path, spec in flat_j:
         keys = tuple(k.key for k in path)
         t_spec = tspecs
@@ -119,7 +119,7 @@ def test_param_specs_and_divisibility_match_reference(arch):
     back_j = jax.tree_util.tree_leaves(
         j_shd.fallback_replicate(jspecs, paths),
         is_leaf=lambda x: isinstance(x, j_shd.P))
-    assert [s for _, s in t_shd._walk(back_t)] == [tuple(s) for s in back_j]
+    assert [s for _, s in walk(back_t)] == [tuple(s) for s in back_j]
 
 
 def test_meshes_of_one_rank_match_reference():
@@ -154,14 +154,14 @@ def test_sharded_init_draws_the_whole_models_shards():
             mesh = t_mesh.Mesh(1, TP, None, r)
             mine = t_shd.init_params(cfg, mesh, seed=3, device="cpu")
             cut = t_shd.shard_params(whole, cfg, mesh)
-            for (p, a), (_, b) in zip(t_shd._walk(mine), t_shd._walk(cut)):
+            for (p, a), (_, b) in zip(walk(mine), walk(cut)):
                 assert torch.equal(a, b), (arch, r, p)
             shards.append(mine)
-        specs = tree_map_path(lambda p, t: t_shd.serve_param_spec(
+        specs = map_with_path(lambda p, t: t_shd.serve_param_spec(
             cfg, TP, p, t.dim(), p[0] == "blocks"), whole)
-        for path, t in t_shd._walk(whole):
-            spec = dict(t_shd._walk(specs))[path]
-            parts = [dict(t_shd._walk(s))[path] for s in shards]
+        for path, t in walk(whole):
+            spec = dict(walk(specs))[path]
+            parts = [dict(walk(s))[path] for s in shards]
             if "model" in spec:
                 t2 = torch.cat(parts, dim=spec.index("model"))
             else:
@@ -242,6 +242,20 @@ for c in spec["runs"]:
         errors=[r.error for r in done if r.error is not None],
         per_device=eng.kv_pool_bytes_per_device(), whole=eng.kv_pool_bytes(),
         preempts=eng.preempt_count, kv_shard=eng.kv_shard, pools=pools)
+# the group's sum: every rank's float32 partial, widely spread so that the
+# order of the additions shows, added in rank order on every rank
+from repro_torch.core.parallel import ShardGroup
+mesh = mesh_lib.make_serve_mesh(1, int(sys.argv[4]))
+gen = torch.Generator().manual_seed(5)
+parts = [torch.randn(3 * 1536, generator=gen)
+         * torch.exp(4 * torch.randn(3 * 1536, generator=gen))
+         for _ in range(mesh.model)]
+got = ShardGroup(group=mesh.group, rank=mesh.rank,
+                 size=mesh.model).sum(parts[mesh.rank].clone())
+want = parts[0].clone()
+for p in parts[1:]:
+    want += p
+out["sum_rank_order"] = int((got != want).sum())
 try:
     mesh_lib.make_serve_mesh(1, 8)
 except ValueError as e:
@@ -458,6 +472,14 @@ def test_moe_and_replicated_pools_match_jax_engine(ranks, name, kv_shard):
     assert all(p[-2] == (hkv // tp if kv_shard else hkv)
                for p in got["pools"])
     assert got["per_device"] * (tp if kv_shard else 1) == got["whole"]
+
+
+def test_group_sum_adds_in_rank_order(ranks):
+    """``ShardGroup.sum`` is ((t0 + t1) + t2) + t3 to the last bit, whatever
+    order the backend's all-reduce would add in (gloo's differs at about a
+    quarter of these elements): one device splitting a dot product the
+    same way gives the mesh's bits."""
+    assert ranks.result()["sum_rank_order"] == 0
 
 
 def test_meshes_in_a_group_of_four(ranks):
