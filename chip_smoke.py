@@ -64,10 +64,19 @@ Phases, each reported on its own line:
              gloo
              (processes): full-width musicgen-medium on digital, bit-serial
              (noise and gain) and frozen analytic, dbrx-132b at 4 of its 40
-             layers and granite-20b at 2 of 52 (``reduced``), each against
-             the same run on one device (tokens, or knife-edge picks within
-             the runs' logit deviation, printed), the paged kernel at each
-             rank's layout, per-rank weight, KV-pool and peak bytes;
+             layers and granite-20b at 2 of 52 (``reduced``), mamba2-2.7b
+             (SSD heads split, the B|C columns on every rank) on digital
+             and bit-serial, recurrentgemma-2b (10 query heads: attention
+             replicated, RG-LRU width split) digital, and musicgen-medium
+             calibrated on the ranks' shards, with drift injected and every
+             chunk sampled, with a transient error on rank 2 alone, and
+             swapped from frozen analytic to bit-serial between chunks;
+             each against the same run on one device (tokens, or knife-edge
+             picks within the runs' logit deviation, printed; calibration
+             site by site, drift reports, swaps, retries), most also bit
+             for bit against one device whose row sites split K as the
+             ranks do, the paged kernel at each rank's layout, per-rank
+             weight, state and peak bytes, the fault vote's ms;
   train      single-device training: full-width musicgen-medium (bf16,
              seeded random weights) through ``launch.train.main``, 12 steps
              of 8 x 512 tokens with a checkpoint every 6 (each step's loss,
@@ -111,7 +120,10 @@ wall time (summary printed, tables under build/chip_smoke/);
 against each other at the architectures' layouts;
 ``--phases device,kprofile``, torch.profiler's kernel rows of one call of
 the seed bit-serial wrapper and of the float analytic wrapper;
-``--phases device,host``, the paged-attention wrapper's host cost per call
+``--phases device,host``, the paged-attention wrapper's host cost per call;
+``--phases device,colsplit``, how many of mamba2-2.7b's ``in_proj``
+elements a rank's product over its column segments rounds apart from one
+product's (why the mesh phase does not hold mamba2 digital bit for bit)
 (``--src DIR`` runs any phase on another checkout's package and kernels,
 e.g. ``git archive`` of the parent commit: processes alternating between
 the two checkouts time them against each other; the timers are that
@@ -135,8 +147,9 @@ ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "chip_smoke"  # logs and profiler tables (git-ignored)
 PHASES = ("device", "build", "kernels", "design", "serve", "archs", "mesh",
           "train", "parity", "bench")
-# not run by default: a profiler trace of one decode chunk per substrate
-EXTRA_PHASES = ("profile", "tiles", "host", "kprofile", "chunks")
+# not run by default (the module docstring says what each does)
+EXTRA_PHASES = ("profile", "tiles", "host", "kprofile", "chunks",
+                "colsplit")
 
 # NVIDIA H100 SXM published peaks (data sheet, dense), used for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -788,6 +801,60 @@ def check_bitserial_offset(dev):
     say("kernels", f"bitserial at column offsets: {tp} shards of {b}x{k}x"
         f"{m} with noise and gain, each bit for bit its plain version at "
         f"its offset, side by side the whole call")
+
+
+def check_bitserial_segments(dev):
+    """The bit-serial kernel as a rank of a 1x``MESH_RANKS`` mesh runs
+    mamba2-2.7b's ``in_proj`` (4 slots): the rank's ``z``, ``x``, ``B|C``
+    and ``dt`` columns, one launch a segment at its global column offset,
+    noise and gain on.  Each launch equals its plain version at its offset
+    bit for bit, and a rank's segments side by side equal the whole call's
+    columns; rank 0's launches timed from graph replays beside the bound
+    of its columns."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core.imc_linear import IMCConfig
+    from repro_torch.kernels import imc_mvm, ref
+    from repro_torch.models import ssm
+
+    imc = IMCConfig(mode="imc_bitserial", bx=7, bw=7, v_wl=0.7)
+    layout = ssm.in_proj_columns(configs.get("mamba2-2.7b"), MESH_RANKS)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b, k, m = BITSERIAL_SLOTS, 2560, layout.total
+    xc, wc, gain, spec, _ = bitserial_case(imc, gen, b, k, m, dev)
+    whole = imc_mvm.imc_bitserial_matmul(xc, wc, gain, spec, seed=4242)
+
+    def launches(r, check=False):
+        out = []
+        for a, e in layout.ranks[r]:
+            y = imc_mvm.imc_bitserial_matmul(
+                xc, wc[:, a:e], gain[:, a:e], spec, seed=4242, col0=a)
+            if check:
+                y_p = ref.imc_bitserial_ref(xc, wc[:, a:e], gain[:, a:e],
+                                            spec, seed=4242, col0=a)
+                torch.cuda.synchronize()
+                if not torch.equal(y, y_p):
+                    raise AssertionError(
+                        f"bitserial segment ({a}, {e}) of rank {r}: max abs "
+                        f"{float((y - y_p).abs().max())}")
+            out.append(y)
+        return torch.cat(out, dim=1)
+
+    for r in range(MESH_RANKS):
+        if not torch.equal(launches(r, check=True),
+                           whole[:, layout.index(r, dev)]):
+            raise AssertionError(f"bitserial segments of rank {r} differ "
+                                 f"from the whole call's columns")
+    m0 = sum(e - a for a, e in layout.ranks[0])
+    ms = time_ms(lambda: launches(0))
+    bound, by = bitserial_bound(b, k, m0, spec.bw * spec.bx, True)
+    say("kernels", f"bitserial mamba2-2.7b in_proj segments at 1x"
+        f"{MESH_RANKS}: every rank's launches ({b}x{k} against "
+        f"{[list(s) for s in layout.ranks[0]]} of {m} columns on rank 0) bit "
+        f"for bit their plain versions and the whole call's columns; rank "
+        f"0: {len(layout.ranks[0])} launches, ms={ms:.4f} bound_ms="
+        f"{bound:.5f} ({by}, {bound / ms:.1%} of it)")
 
 
 ARCH_BITSERIAL_SHAPES = (
@@ -2079,33 +2146,69 @@ def serve_dbrx():
 MESH_RANKS = 4
 MESH_LENS = [16, 64, 33, 128]
 MESH_GEN = 8
+# the drift case scales every mlp.wi weight by this after its first two
+# requests (the CLI's --inject-drift 2.5@2)
+MESH_DRIFT = 2.5
+# fault votes timed alone after the cases
+MESH_VOTES = 200
 # (label, arch, layers kept (None: all), substrate, noise seed, requests
-# (the first of MESH_LENS), cap): full published widths; dbrx-132b and
-# granite-20b cut in depth only (reduced).  The bit-serial case keeps two of
-# the four slots idle, whose rows enter its batch-wide dynamic ranges, and
-# must give the one device's tokens exactly (cap None): its banks are whole
-# and its noise sites and gain are the single device's.  The others may
-# differ only at knife edges, with the two runs' logits at most ``cap``
-# apart: twice the deviation of the case's runs on an H100 (both runs are
+# (the first of MESH_LENS), cap, feature, the one device held against):
+# full published widths; dbrx-132b and granite-20b cut in depth only
+# (reduced).  The bit-serial cases keep two of the four slots idle, whose
+# rows enter their batch-wide dynamic ranges, and must give the one
+# device's tokens exactly (cap None): their banks are whole and their
+# noise sites and gain are the single device's.  The others may differ
+# only at knife edges, with the two runs' logits at most ``cap`` apart:
+# twice the deviation of the case's runs on an H100 (both runs are
 # deterministic, so a run repeats it; a rank's cuBLAS products are not one
-# device's to the last bit, and a bf16 rounding then moves by one unit)
+# device's to the last bit, and a bf16 rounding then moves by one unit).
+# ``feature``: "calibrate" freezes the analytic substrate on the ranks'
+# shards (one device: on the whole model), "drift" samples and checks
+# every chunk and scales mlp.wi after two requests, "fault" raises a
+# transient error on rank 2 alone before decode chunk 1, "swap" moves
+# frozen analytic to frozen bit-serial after the first chunk.  The one
+# device is "plain" (under the cap), "split": one device whose row sites
+# are split as the ranks split them (:func:`split_k_rows`), which the run
+# must equal bit for bit (:func:`split_k_parity`: tokens, counters, every
+# logit), or "both".  mamba2-2.7b digital is not held against "split": a
+# rank's in_proj over its column segments rounds apart from the same
+# columns of one product over all of them; dbrx-132b and granite-20b are
+# held under their caps alone
 MESH_CASES = (
     ("musicgen-medium digital", "musicgen-medium", None, "digital", None, 4,
-     2 * 0.0546875),
+     2 * 0.0546875, None, "both"),
     ("musicgen-medium imc_bitserial (noise and gain, seed 7)",
-     "musicgen-medium", None, "imc_bitserial", 7, 2, None),
+     "musicgen-medium", None, "imc_bitserial", 7, 2, None, None, "plain"),
     ("musicgen-medium imc_analytic frozen", "musicgen-medium", None,
-     "imc_analytic", None, 4, 2 * 0.30078125),
+     "imc_analytic", None, 4, 2 * 0.30078125, None, "both"),
     ("dbrx-132b digital", "dbrx-132b", 4, "digital", None, 4,
-     2 * 0.59375),
+     2 * 0.59375, None, "plain"),
     ("granite-20b digital", "granite-20b", 2, "digital", None, 4,
-     2 * 0.0625),
+     2 * 0.0625, None, "plain"),
+    ("mamba2-2.7b digital", "mamba2-2.7b", None, "digital", None, 4,
+     2 * 0.3662109375, None, "plain"),
+    ("mamba2-2.7b imc_bitserial (noise and gain, seed 7)", "mamba2-2.7b",
+     None, "imc_bitserial", 7, 2, None, None, "plain"),
+    ("recurrentgemma-2b digital", "recurrentgemma-2b", None, "digital",
+     None, 4, 2 * 0.13671875, None, "both"),
+    ("musicgen-medium imc_analytic frozen on the ranks' shards",
+     "musicgen-medium", None, "imc_analytic", None, 4, None, "calibrate",
+     "split"),
+    ("musicgen-medium imc_analytic frozen, drift injected",
+     "musicgen-medium", None, "imc_analytic", None, 4, None, "drift",
+     "split"),
+    ("musicgen-medium digital, a fault on rank 2", "musicgen-medium", None,
+     "digital", None, 4, None, "fault", "split"),
+    ("musicgen-medium imc_analytic frozen, swapped to imc_bitserial",
+     "musicgen-medium", None, "imc_analytic", None, 4, None, "swap",
+     "split"),
 )
 
 
 def mesh_cfg(case, calibration):
-    """A ``MESH_CASES`` entry's config; the frozen analytic substrate takes
-    ``calibration`` (a dict, measured on the whole model)."""
+    """A ``MESH_CASES`` entry's config; a frozen analytic substrate takes
+    ``calibration`` (a dict, measured on the whole model), except where the
+    case calibrates itself."""
     from repro_torch import configs
     from repro_torch.core import substrate as substrate_lib
     from repro_torch.core.imc_linear import IMCConfig
@@ -2117,31 +2220,97 @@ def mesh_cfg(case, calibration):
     if mode != "digital":
         sub = substrate_lib.as_substrate(
             IMCConfig(mode=mode, bx=7, bw=7, v_wl=0.7))
-        if mode == "imc_analytic":
+        if mode == "imc_analytic" and case[7] != "calibrate":
             sub = sub.frozen(substrate_lib.Calibration.from_dict(calibration))
         cfg = cfg.replace(imc=sub)
     return cfg
 
 
+def mesh_calibrated(cfg, params, mesh=None):
+    """``cfg`` frozen as the CLI freezes it: on a seeded (2, 128) reference
+    batch, recorded on this rank's shards of ``mesh`` and reduced over the
+    group (one device: on the whole model)."""
+    import numpy as np
+
+    from repro_torch.core import parallel
+    from repro_torch.core import substrate as substrate_lib
+    from repro_torch.launch import sharding
+
+    ref = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                            (2, max(MESH_LENS)))
+    group = sharding.shard_group(cfg, mesh) if mesh is not None else None
+    with parallel.use(group):
+        return substrate_lib.calibrate_model(cfg, params, [ref])
+
+
 def mesh_serve(case, cfg, params, mesh=None, force=None):
     """Serve a ``MESH_CASES`` entry's prompts (``MESH_GEN`` new tokens
     each) under a :class:`TokenProbe`, on one device or as this rank of
-    ``mesh``; returns (tokens, counters as JSON, probe, engine, seconds)."""
+    ``mesh``, with the case's feature; returns (tokens, counters as JSON,
+    probe, engine, seconds, what the feature's holds read)."""
     import numpy as np
     import torch
 
+    from repro_torch.core import substrate as substrate_lib
+    from repro_torch.core.imc_linear import IMCConfig
     from repro_torch.launch import serve
+    from repro_torch.runtime import drift as drift_lib
+    from repro_torch.runtime import fault as fault_lib
 
-    label, rng, n_req = case[0], case[4], case[5]
+    label, rng, n_req, feature = case[0], case[4], case[5], case[7]
     rnp = np.random.default_rng(0)
     reqs = [serve.Request(rid=i, prompt=rnp.integers(0, cfg.vocab_size, n),
                           max_new=MESH_GEN)
             for i, n in enumerate(MESH_LENS[:n_req])]
+    extra, kw = {}, {}
+    if feature == "calibrate":
+        cfg = mesh_calibrated(cfg, params, mesh)
+        extra["calibration"] = cfg.imc.calibration.to_dict()
+    reports = []
+    if feature == "drift":
+        mon = drift_lib.DriftMonitor(drift_lib.DriftConfig(
+            sample_every=1, check_every=1))
+        check = mon.check
+
+        def logged(frozen):
+            report = check(frozen)
+            if report is not None:
+                reports.append((mon.chunks_seen, report.drifted_sites))
+            return report
+
+        mon.check = logged
+        kw["drift_monitor"] = mon
+    if feature == "fault" and mesh is not None:
+        fired = []
+
+        def injector(phase, info):
+            if (phase == "decode" and info == 1 and mesh.rank == 2
+                    and not fired):
+                fired.append(info)
+                raise fault_lib.TransientDeviceError("injected on rank 2")
+
+        kw["failure_injector"] = injector
     with probing(force=force) as probes:
         eng = serve.Engine(cfg, params, 4, max(MESH_LENS) + MESH_GEN + 8,
-                           rng=rng, max_chunk=8, mesh=mesh)
+                           rng=rng, max_chunk=8, mesh=mesh, **kw)
         t0 = time.perf_counter()
-        fin = serve.serve(eng, reqs)
+        if feature == "drift":
+            serve.serve(eng, reqs[:2])
+            eng.params = serve._scale_wi(eng.params, MESH_DRIFT)
+            serve.serve(eng, reqs[2:])
+            fin = eng.finished
+        elif feature == "swap":
+            pending = list(reqs)
+            eng.admit_pending(pending)
+            eng.decode_chunk()
+            eng.swap_substrate(substrate_lib.as_substrate(
+                IMCConfig(mode="imc_bitserial", bx=7, bw=7, v_wl=0.7)))
+            while pending or eng.active:
+                eng.admit_pending(pending)
+                eng.decode_chunk()
+            fin = eng.finished
+        else:
+            fin = serve.serve(eng, reqs)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
     for r in fin:
@@ -2153,7 +2322,12 @@ def mesh_serve(case, cfg, params, mesh=None, force=None):
                       "prefill_rows": eng.prefill_rows,
                       "decode_calls": eng.decode_calls,
                       "decode_steps": eng.decode_steps})
-    return {r.rid: list(r.out) for r in fin}, cnt, probes[-1], eng, dt
+    extra.update(reports=reports, swaps=eng.swap_count, retries=eng.retries,
+                 decode_failures=eng.decode_failures, votes=eng.votes,
+                 vote_ms=1e3 * eng.vote_seconds / max(eng.votes, 1),
+                 substrate_swaps=eng.substrate_swaps)
+    return ({r.rid: list(r.out) for r in fin}, cnt, probes[-1], eng, dt,
+            extra)
 
 
 def mesh_rank(calibration):
@@ -2181,20 +2355,32 @@ def mesh_rank(calibration):
         peak_init = torch.cuda.max_memory_allocated() - base
         reset_counts()
         pa.paged_attention_cuda.layouts = {}
-        out, cnt, probe, eng, dt = mesh_serve(case, cfg, params, mesh=mesh)
+        out, cnt, probe, eng, dt, extra = mesh_serve(case, cfg, params,
+                                                     mesh=mesh)
         mine = {"weights": weights, "peak_init": peak_init,
                 "peak": torch.cuda.max_memory_allocated(),
                 "pool": eng.kv_pool_bytes_per_device(),
+                "state": eng._fixed_kv_bytes,
                 "counts": read_counts(),
                 "layouts": dict(pa.paged_attention_cuda.layouts),
-                "seconds": dt}
+                "seconds": dt, "retries": extra["retries"],
+                "decode_failures": extra["decode_failures"],
+                "votes": extra["votes"], "vote_ms": extra["vote_ms"]}
         ranks = [None] * MESH_RANKS
         dist.all_gather_object(ranks, mine)
         results.append({"out": out, "cnt": cnt, "logits": probe.logits,
                         "level": probe.level, "whole": eng.kv_pool_bytes(),
-                        "kv_shard": eng.kv_shard,
+                        "kv_shard": eng.kv_shard, "extra": extra,
                         "steps": eng.decode_steps, "ranks": ranks})
         del params, eng, probe
+    # the fault vote alone: a host all-reduce of one integer over the
+    # group, timed after a barrier so no rank waits for another's work
+    group = sharding.shard_group(mesh_cfg(MESH_CASES[0], calibration), mesh)
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(MESH_VOTES):
+        group.vote(False)
+    results.append(1e3 * (time.perf_counter() - t0) / MESH_VOTES)
     return results
 
 
@@ -2248,28 +2434,64 @@ def mesh_numerics():
     return used
 
 
+def phase_colsplit():
+    """Why :func:`split_k_rows` cannot reproduce mamba2-2.7b's 1x4 runs: at
+    its ``in_proj`` (bf16, K 2560, 10576 columns; 3, 4, 33 and 128 rows,
+    the engine's shapes), the count of elements where a rank's product
+    over its column segments (``ssm.in_proj_columns``) differs bitwise
+    from the same columns of one product over all of them.  Decides
+    nothing; not run by default."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import ssm
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cfg = configs.get("mamba2-2.7b")
+    seg = ssm.in_proj_columns(cfg, MESH_RANKS)
+    k, m, n_diff, n_all = cfg.d_model, seg.total, 0, 0
+    for rows in (3, 4, 33, 128):
+        x = torch.randn((rows, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        w = (torch.randn((k, m), generator=gen, device="cuda")
+             * k**-0.5).to(torch.bfloat16)
+        whole = torch.matmul(x, w)
+        for r in range(MESH_RANKS):
+            idx = seg.index(r, "cuda")
+            part = torch.matmul(x, w[:, idx].contiguous())
+            n_diff += int((part != whole[:, idx]).sum())
+            n_all += part.numel()
+    say("colsplit", f"mamba2-2.7b in_proj at 1x{MESH_RANKS}: a rank's "
+        f"product over its column segments differs bitwise from the same "
+        f"columns of one product at {n_diff} of {n_all} elements (bf16; "
+        f"3, 4, 33 and 128 rows)")
+
+
 @contextlib.contextmanager
-def split_k_rows(n):
-    """One device computing every row-parallel site as ``n`` ranks do
-    (``core.imc_linear._matmul`` under a shard group): ``n`` float32
-    partial products over equal shares of K, added in rank order
-    (``core.parallel.ShardGroup.sum``) and rounded to bf16 once.  Every
-    other site runs the one-device code.  The models call ``linear`` by
-    name, so each calling module's name is swapped for a wrapper that
-    marks its row sites."""
+def split_k_rows(cfg, n):
+    """One device computing every row-parallel site of ``cfg`` as ``n``
+    ranks do (``core.imc_linear._matmul`` under a shard group): ``n``
+    float32 partial products over equal shares of K, added in rank order
+    (``core.parallel.ShardGroup.sum``) and rounded to bf16 once.  A site
+    that the mesh replicates (``sharding.replicated_sites``) runs whole on
+    every rank, and so runs the one-device code here, as does every other
+    site.  The models call ``linear`` by name, so each calling module's
+    name is swapped for a wrapper that marks its split row sites."""
     import torch
 
     from repro_torch.core import imc_linear
-    from repro_torch.models import attention, layers, transformer
+    from repro_torch.launch import sharding
+    from repro_torch.models import attention, layers, rglru, ssm, transformer
 
-    modules = (attention, layers, transformer)
+    modules = (attention, layers, transformer, ssm, rglru)
     inner_linear, inner_matmul = imc_linear.linear, imc_linear._matmul
+    replicated = sharding.replicated_sites(cfg, n)
     row = []
 
-    def linear(*a, split=None, **k):
-        row.append(split == "row")
+    def linear(*a, split=None, site=None, **k):
+        row.append(split == "row" and site not in replicated)
         try:
-            return inner_linear(*a, split=split, **k)
+            return inner_linear(*a, split=split, site=site, **k)
         finally:
             row.pop()
 
@@ -2299,16 +2521,15 @@ def split_k_rows(n):
         imc_linear._matmul = inner_matmul
 
 
-def split_k_parity(label, case, cfg, res, params):
+def split_k_parity(label, res, one):
     """Hold a 1x``MESH_RANKS`` run (``res``) against one device whose row
-    sites are split as the ranks split them (:func:`split_k_rows`): tokens,
-    counters and every logit, bit for bit.  Prints the verdict; returns
-    the failure or None."""
+    sites are split as the ranks split them (:func:`split_k_rows`; ``one``
+    is that run's tokens, counters and probe): tokens, counters and every
+    logit, bit for bit.  Prints the verdict; returns the failure or
+    None."""
     import torch
 
-    with split_k_rows(MESH_RANKS):
-        out, cnt, probe, eng, _ = mesh_serve(case, cfg, params)
-    del eng
+    out, cnt, probe = one
     keys = sorted(res["logits"])
     diff = [k for k in keys if k not in probe.logits
             or not torch.equal(probe.logits[k], res["logits"][k])]
@@ -2337,18 +2558,29 @@ def phase_mesh():
     bit-serial with noise and gain, and frozen analytic; dbrx-132b at full
     width and 4 of its 40 layers (4 experts and 2 KV heads per rank);
     granite-20b at 2 of its 52 layers (MQA: the pool replicated, 12 query
-    heads per rank).  Each run against the same run on one device:
-    bit-serial gives identical greedy tokens and counters; the others too,
-    except picks whose margin lies within the two runs' logit deviation,
-    each printed, with the deviation at most the case's cap (a rank's
-    cuBLAS products are not one device's to the last bit); one
+    heads per rank); mamba2-2.7b (20 SSD heads a rank, the B|C columns on
+    every rank) digital and bit-serial; recurrentgemma-2b (10 query heads:
+    the attention and its rings replicated, the RG-LRU width split)
+    digital; musicgen-medium frozen analytic calibrated on the ranks'
+    shards (the calibration held site by site at rel 1e-5 against the
+    whole model's), with drift injected and every chunk sampled and
+    checked (the same drift reports and swaps), digital with a transient
+    error on rank 2 alone before decode chunk 1 (every rank retries once),
+    and frozen analytic swapped to bit-serial after the first chunk.  Each
+    run against the same run on one device (plain, or with its row sites
+    split as the ranks split them, as the case says): bit-serial, the fault
+    and the swap give identical greedy tokens and counters; the others
+    too, except picks whose margin lies within the two runs' logit
+    deviation, each printed, with the deviation at most the case's cap (a
+    rank's cuBLAS products are not one device's to the last bit); one
     paged-attention launch per layer and decode step at the rank's layout;
-    per-rank weight bytes, KV pool bytes per device, peak memory and tok/s
-    (four processes time-sharing one card: not a scaling number).  Returns
-    rank 0's launch counts.  The musicgen-medium digital and frozen
-    analytic runs are also held bit for bit against one device that splits
-    its row sites' dot products as the ranks do (:func:`split_k_parity`):
-    the only difference between the mesh and one device."""
+    per-rank weight bytes, KV pool and state bytes per device, peak memory,
+    tok/s (four processes time-sharing one card: not a scaling number) and
+    the fault vote's ms.  Returns rank 0's launch counts.  The cases that
+    ``MESH_CASES`` marks "split" or "both" are held bit for bit, every
+    logit, against one device that splits its row sites' dot products as
+    the ranks do (:func:`split_k_parity`): the only difference between the
+    mesh and one device."""
     import types
 
     import numpy as np
@@ -2359,6 +2591,7 @@ def phase_mesh():
     from repro_torch.core.imc_linear import IMCConfig
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding
     from repro_torch.models import init_params
 
     totals, layouts, split_k_failures = {}, {}, []
@@ -2399,22 +2632,33 @@ def phase_mesh():
     say("mesh", f"{MESH_RANKS} ranks on one card over gloo: "
         f"{len(MESH_CASES)} runs in {time.perf_counter() - t0:.1f} s "
         f"(starting the rank processes included)")
+    vote_ms = results.pop()
+    say("mesh", f"the fault vote alone (a host all-reduce of one integer "
+        f"over gloo, {MESH_VOTES} calls after a barrier): {vote_ms:.4f} ms "
+        f"a call on rank 0; in the runs below a rank's vote also waits for "
+        f"the slowest rank to reach it")
     free_device()
     for case, res in zip(MESH_CASES, results):
-        label = f"{case[0]} at 1x{MESH_RANKS}"
+        label, feature = f"{case[0]} at 1x{MESH_RANKS}", case[7]
         cfg = mesh_cfg(case, calibration)
         kinds = cfg.pattern * cfg.n_full_cycles + cfg.tail_kinds
         tp = MESH_RANKS
-        hkv = cfg.n_kv_heads // tp if res["kv_shard"] else cfg.n_kv_heads
-        g = cfg.n_heads // tp // (hkv if res["kv_shard"] else 1)
-        want = {pa.layout_key(hkv, g, cfg.resolved_head_dim,
-                              torch.bfloat16): kinds.count("attn")
-                * res["steps"]}
+        if sharding.attention_whole(cfg, tp):  # every head on every rank
+            hkv, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+        else:
+            hkv = cfg.n_kv_heads // tp if res["kv_shard"] else cfg.n_kv_heads
+            g = cfg.n_heads // tp // (hkv if res["kv_shard"] else 1)
+        n_attn = kinds.count("attn")
+        want = ({pa.layout_key(hkv, g, cfg.resolved_head_dim,
+                               torch.bfloat16): n_attn * res["steps"]}
+                if n_attn else {})
+        bitserial = case[3] == "imc_bitserial" or feature == "swap"
         for r, mine in enumerate(res["ranks"]):
             if mine["layouts"] != want:
                 raise AssertionError(f"{label}: rank {r} paged launches by "
                                      f"layout {mine['layouts']}, want {want}")
-            if case[3] == "imc_bitserial" and mine["counts"]["bitserial"] <= 0:
+            if bitserial and (mine["counts"]["bitserial"]
+                              + mine["counts"]["bitserial_nogain"]) <= 0:
                 raise AssertionError(f"{label}: rank {r} never launched the "
                                      f"bit-serial kernel")
         if res["kv_shard"] and res["ranks"][0]["pool"] * tp != res["whole"]:
@@ -2425,45 +2669,101 @@ def phase_mesh():
             return res["out"], res["cnt"], types.SimpleNamespace(
                 logits=res["logits"], level=res["level"])
 
-        whole = {}  # one device's weights, kept for a forced rerun
+        whole = {}  # one device's weights, kept for reruns
 
-        def run_b(force, case=case, cfg=cfg, whole=whole):
+        def one_device(force, split, case=case, cfg=cfg, whole=whole):
             if not whole:
                 free_device()
                 whole["params"] = init_params(cfg, seed=0, device="cuda")
-            out, cnt, probe, eng, _ = mesh_serve(case, cfg, whole["params"],
-                                                 force=force)
+            with (split_k_rows(cfg, MESH_RANKS) if split
+                  else contextlib.nullcontext()):
+                out, cnt, probe, eng, _, extra = mesh_serve(
+                    case, cfg, whole["params"], force=force)
             del eng
-            return out, cnt, probe
+            return out, cnt, probe, extra
 
-        cap = case[6]
-        verdict = tie_parity(label, run_a, run_b,
-                             ties=(cap is not None
-                                   and case[3] == "imc_analytic"),
-                             edges=cap is not None, strict=cap is None,
-                             cap=cap, show_dev=True)
-        if case[1] == "musicgen-medium" and case[3] != "imc_bitserial":
-            if not whole:
-                free_device()
-                whole["params"] = init_params(cfg, seed=0, device="cuda")
-            failed = split_k_parity(label, case, cfg, res, whole["params"])
+        cap, one = case[6], None
+        if case[8] != "split":
+            b_runs = []
+
+            def run_b(force, b_runs=b_runs, one_device=one_device):
+                b_runs.append(one_device(force, False))
+                return b_runs[-1][:3]
+
+            verdict = tie_parity(label, run_a, run_b,
+                                 ties=(cap is not None
+                                       and case[3] == "imc_analytic"),
+                                 edges=cap is not None, strict=cap is None,
+                                 cap=cap, show_dev=True)
+            say("mesh", f"{label} against one device: {verdict}")
+            one = b_runs[0][3]
+        if case[8] != "plain":
+            split_run = one_device(None, True)
+            failed = split_k_parity(label, res, split_run[:3])
             if failed is not None:
                 split_k_failures.append(failed)
+            one = split_run[3]
+        # the feature's holds, against the one device's first run
+        mine = res["extra"]
+        if feature == "calibrate":
+            # the ranks' forward differs from plain one device's by
+            # cuBLAS's order at the row sites, which moves a bf16 activation
+            # (and so a range) by an ulp: the hold is the split one device
+            def rel(cal):
+                return max((abs(mine["calibration"][site][f] - v) / abs(v),
+                            site, f) for site, st in cal.items()
+                           for f, v in st.items())
+
+            held = rel(one["calibration"])
+            if (mine["calibration"].keys() != one["calibration"].keys()
+                    or held[0] > 1e-5):
+                raise AssertionError(f"{label}: calibration on the shards "
+                                     f"is rel {held} from split one "
+                                     f"device's")
+            say("mesh", f"{label}: {len(one['calibration'])} calibration "
+                f"sites (x_max, w_max, sigma_yo) on the ranks' shards within "
+                f"rel {held[0]!r} ({held[1]}.{held[2]}) of one device's with "
+                f"the ranks' row splits (hold: 1e-5)")
+        if feature == "drift":
+            if (mine["reports"], mine["swaps"]) != (one["reports"],
+                                                    one["swaps"]):
+                raise AssertionError(f"{label}: drift reports {mine['reports']}"
+                                     f" and {mine['swaps']} swaps, one device "
+                                     f"{one['reports']} and {one['swaps']}")
+            if not one["swaps"]:
+                raise AssertionError(f"{label}: no drift was detected")
+            say("mesh", f"{label}: the one device's drift reports (chunk, "
+                f"drifted sites) {mine['reports']} and {mine['swaps']} "
+                f"hot-swaps on every rank")
+        if feature == "fault":
+            got = [(m["retries"], m["decode_failures"])
+                   for m in res["ranks"]]
+            if got != [(1, 0)] * MESH_RANKS:
+                raise AssertionError(f"{label}: (retries, decode failures) "
+                                     f"by rank {got}, want one retry each")
+            say("mesh", f"{label}: every rank retried decode chunk 1 once "
+                f"(retries, decode failures by rank {got})")
+        if feature == "swap" and mine["substrate_swaps"] != 1:
+            raise AssertionError(f"{label}: {mine['substrate_swaps']} swaps")
         whole.clear()
         free_device()
-        say("mesh", f"{label} against one device: {verdict}")
         tokens = sum(len(o) for o in res["out"].values())
         for r, mine in enumerate(res["ranks"]):
             say("mesh", f"{label} rank {r}: weights {mine['weights'] / 1e9:.3f}"
                 f" GB, init peak {mine['peak_init'] / 1e9:.3f} GB, KV pool "
                 f"{mine['pool'] / 1e6:.2f} MB on the device (whole "
                 f"{res['whole'] / 1e6:.2f} MB, "
-                f"{'head-sharded' if res['kv_shard'] else 'replicated'}), "
+                f"{'head-sharded' if res['kv_shard'] else 'replicated'}; "
+                f"rings and recurrent state {mine['state'] / 1e6:.2f} MB), "
                 f"peak {mine['peak'] / 1e9:.3f} GB, {tokens} tokens in "
                 f"{mine['seconds']:.2f} s = {tokens / mine['seconds']:.1f} "
                 f"tok/s (four processes time-sharing one card, not a "
-                f"scaling number); launches {mine['counts']}, paged by "
-                f"layout {mine['layouts']}")
+                f"scaling number); "
+                + (f"fault vote {mine['vote_ms']:.3f} ms a call over "
+                   f"{mine['votes']} calls" if mine["votes"]
+                   else "no fault vote (no injector)")
+                + f"; launches "
+                f"{mine['counts']}, paged by layout {mine['layouts']}")
         for k, v in res["ranks"][0]["counts"].items():
             totals[k] = totals.get(k, 0) + v
         for k, v in res["ranks"][0]["layouts"].items():
@@ -3749,6 +4049,7 @@ def main() -> int:
         kernels = [check_paged_attention(dev), *check_paged_layouts(dev),
                    *check_bitserial(dev)]
         check_bitserial_offset(dev)
+        check_bitserial_segments(dev)
         check_bitserial_shapes(dev)
         kernels += [check_analytic(dev),
                    check_analytic_int8(dev), check_seed_bitserial(dev)]
@@ -3783,6 +4084,8 @@ def main() -> int:
         phase_host(dev)
     if "kprofile" in phases:
         phase_kprofile(dev)
+    if "colsplit" in phases:
+        phase_colsplit()
     say("done", f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

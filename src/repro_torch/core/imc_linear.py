@@ -23,7 +23,9 @@ site marks its projection column- or row-parallel (``split``), and every
 mode keeps the single device's semantics: quantizer ranges and the analytic
 output statistics are taken over the whole tensor, analog noise is the
 slice of the single device's draw, and a bit-serial bank always sees its
-whole dot product.
+whole dot product.  A calibration or shadow recorder records each rank's
+share (``core.substrate.CalibrationRecorder``: the per-row output moments
+summed over the group, the ranges max-reduced when it is read).
 """
 from __future__ import annotations
 
@@ -172,8 +174,18 @@ def _matmul(x, w, tp=None):
 # ---------------------------------------------------------------------------
 
 
+def _observe(rec, site, x, w, y, tp, cols):
+    """Feed a recorder one observation; a rank's share comes with its
+    group and, at a column site, its column layout."""
+    if tp is None:
+        rec.observe(site, x, w, y=y)
+    else:
+        rec.observe(site, x, w, y=y, group=tp, cols=cols)
+
+
 def linear(w, x, cfg=DIGITAL, rng: Optional[int] = None, bias=None,
-           site: Optional[str] = None, split: Optional[str] = None):
+           site: Optional[str] = None, split: Optional[str] = None,
+           cols: Optional[parallel.Columns] = None):
     """y = x @ w (+ bias) on the configured execution substrate.
 
     ``w`` is (d_in, d_out), ``x`` (..., d_in).  ``site`` names the compute
@@ -182,19 +194,20 @@ def linear(w, x, cfg=DIGITAL, rng: Optional[int] = None, bias=None,
     quantizer ranges.  ``rng`` is an integer noise seed or None.
 
     ``split`` marks a tensor-parallel projection; it matters only under an
-    active shard group (``core.parallel.use``).  ``"col"``: ``w`` holds this
-    rank's share of the output columns and ``x`` is whole; the output stays
-    split by columns.  ``"row"``: ``x`` and ``w`` hold this rank's share of
-    the dot-product dimension and the output is whole, summed over the
-    group.  A row site in the group's ``row_columns`` (bit-serial banks)
-    holds output columns instead: its input is gathered, and its output
-    gathered back.
+    active shard group (``core.parallel.use``) that does not replicate
+    ``site``.  ``"col"``: ``w`` holds this rank's output columns and ``x``
+    is whole; the output stays split by columns, one equal block a rank,
+    or as ``cols`` lays them out.  ``"row"``: ``x`` and ``w`` hold this
+    rank's share of the dot-product dimension and the output is whole,
+    summed over the group.  A row site in the group's ``row_columns``
+    (bit-serial banks) holds output columns instead: its input is
+    gathered, and its output gathered back.
     """
     from repro_torch.core import substrate as substrate_lib
 
     sub = substrate_lib.as_substrate(cfg)
     cfg = sub.site_config(site)
-    tp = parallel.active() if split is not None else None
+    tp = parallel.active_for(site) if split is not None else None
     if tp is not None:
         if bias is not None:
             raise ValueError("a tensor-parallel linear takes no bias")
@@ -202,22 +215,33 @@ def linear(w, x, cfg=DIGITAL, rng: Optional[int] = None, bias=None,
             y = linear(w, tp.gather(x), sub, rng, site=site, split="col")
             return tp.gather(y)
     row = tp is not None and split == "row"
+    col = tp is not None and not row
     tp_row = tp if row else None
+    if col and cols is None:
+        cols = parallel.Columns.block(tp.size, w.shape[-1])
     if cfg.mode == "digital":
         y = _matmul(x, w, tp_row)
         return y if bias is None else y + bias
 
+    def whole_ranges():
+        # the dynamic ranges of the whole tensors: reduced over the group
+        # where this rank holds a share
+        x_max, w_max = _dynamic_max(x), _dynamic_max(w)
+        if tp is not None:
+            w_max = tp.max(w_max)
+            if row:
+                x_max = tp.max(x_max)
+        return x_max, w_max
+
     rec = substrate_lib.active_recorder()
-    if rec is not None and tp is not None:
-        raise ValueError("calibration records whole-tensor statistics: "
-                         "calibrate the unsharded model")
     if rec is not None:
         # calibration pass: record this site's operand ranges, then run the
         # noiseless fakequant proxy (same ranges as the real substrate)
-        xq = _fq_ste(x, cfg.bx, cfg.x_signed, _dynamic_max(x))
-        wq = _fq_ste(w, cfg.bw, True, _dynamic_max(w))
-        y = _matmul(xq, wq)
-        rec.observe(site or substrate_lib.DEFAULT_SITE, x, w, y=y)
+        x_max, w_max = whole_ranges()
+        xq = _fq_ste(x, cfg.bx, cfg.x_signed, x_max)
+        wq = _fq_ste(w, cfg.bw, True, w_max)
+        y = _matmul(xq, wq, tp_row)
+        _observe(rec, site or substrate_lib.DEFAULT_SITE, x, w, y, tp, cols)
         return y if bias is None else y + bias
 
     # passive shadow observation (online drift monitoring): the real
@@ -225,21 +249,15 @@ def linear(w, x, cfg=DIGITAL, rng: Optional[int] = None, bias=None,
     # pre-ADC proxy, the fakequant product for fakequant and analytic and
     # the kernel output for bit-serial, as in the reference
     shadow = substrate_lib.active_shadow_recorder()
-    if shadow is not None and tp is not None:
-        raise ValueError("shadow recording is not sharded: drift monitoring "
-                         "runs on one device")
 
     def _shadow_note(y_obs):
         if shadow is not None:
-            shadow.observe(site or substrate_lib.DEFAULT_SITE, x, w, y=y_obs)
+            _observe(shadow, site or substrate_lib.DEFAULT_SITE, x, w, y_obs,
+                     tp, cols)
 
     stats = sub.site_stats(site)  # None => dynamic per-batch statistics
     if stats is None:
-        x_max, w_max = _dynamic_max(x), _dynamic_max(w)
-        if tp is not None:  # ranges of the whole tensors
-            w_max = tp.max(w_max)
-            if row:
-                x_max = tp.max(x_max)
+        x_max, w_max = whole_ranges()
     else:
         x_max, w_max = stats.x_max, stats.w_max
 
@@ -256,9 +274,9 @@ def linear(w, x, cfg=DIGITAL, rng: Optional[int] = None, bias=None,
         wq = _fq_ste(w, cfg.bw, True, w_max)
         y = _matmul(xq, wq, tp_row)  # the ADC converts the whole product
         _shadow_note(y)
-        col = tp is not None and not row
         if stats is None:
-            y_all = tp.gather(y.detach()) if col else y.detach()
+            y_all = (tp.gather_columns(y.detach(), cols) if col
+                     else y.detach())
             sigma_yo = y_all.std(unbiased=False) + 1e-9
         else:
             sigma_yo = stats.sigma_yo
@@ -267,12 +285,11 @@ def linear(w, x, cfg=DIGITAL, rng: Optional[int] = None, bias=None,
         if rng is not None:
             gen = torch.Generator(device=y.device)
             gen.manual_seed(int(rng))
-            m = y.shape[-1]
-            shape = y.shape[:-1] + (m * tp.size if col else m,)
+            shape = y.shape[:-1] + (cols.total if col else y.shape[-1],)
             z = torch.randn(shape, generator=gen, device=y.device,
                             dtype=y.dtype)
             if col:  # this rank's columns of the single device's draw
-                z = z[..., tp.rank * m:(tp.rank + 1) * m]
+                z = z[..., cols.index(tp.rank, y.device)]
             y = y + sigma_a * z
         # MPC output ADC: clip at zeta*sigma, quantize with B_ADC bits (STE)
         b_adc = cfg.resolved_b_adc(n)
@@ -290,11 +307,9 @@ def linear(w, x, cfg=DIGITAL, rng: Optional[int] = None, bias=None,
         mcfg = kops.matmul_config_from_imc(cfg, n)
         lead = x.shape[:-1]
         x2 = x.reshape(-1, n)
-        m = w.shape[-1]
-        cols = ((tp.rank * m, tp.size * m) if tp is not None
-                else (0, m))
         y = kops.imc_matmul(x2, w, mcfg, seed=rng, x_max=x_max, w_max=w_max,
-                            cols=cols)
+                            cols=((cols.ranks[tp.rank], cols.total) if col
+                                  else None))
         y = y.reshape(*lead, w.shape[-1]).to(x.dtype)
         _shadow_note(y)
         return y if bias is None else y + bias

@@ -105,41 +105,71 @@ class CalibrationRecorder:
     ``(x_max, w_max, sigma_yo)`` running-max tensor, and :meth:`finalize`
     reads them to the host once.  Max commutes with the widening to float64
     and with the ``+ 1e-9``, so the result equals reading every observation
-    at once."""
+    at once.
+
+    Under a tensor-parallel shard group a rank observes its share of a
+    site.  Ranges are max-reducible: each rank keeps the maxima of its own
+    operands and :meth:`finalize` max-reduces them over the group, once,
+    when the recorder is read.  A row's output std is not: at a column
+    site each rank holds part of every output row, so the rows' first and
+    second moments (float64, each column counted once) are summed over the
+    group in the observation, a device collective with no host copy, and
+    every rank takes the same std and max over rows."""
 
     def __init__(self):
         self._acc: Dict[str, SiteStats] = {}
         self._dev: Dict[str, torch.Tensor] = {}
+        self._group = None  # the shard group observed under, if any
 
     def note(self, site: str, stats: SiteStats):
         prev = self._acc.get(site)
         self._acc[site] = stats if prev is None else prev.merge(stats)
 
-    def observe(self, site: str, x, w, y=None):
+    def observe(self, site: str, x, w, y=None, group=None, cols=None):
         """Record one (x, w) observation of ``site``; ``y`` defaults to
-        ``x @ w``.  All-zero rows of ``x`` change no stat.  No host sync."""
+        ``x @ w``.  All-zero rows of ``x`` change no stat.  No host sync.
+        ``group`` is the shard group this rank observes under (None: one
+        device or a replicated site); ``cols`` (a ``core.parallel.Columns``)
+        says that ``y`` holds this rank's output columns of each row."""
         with torch.no_grad():
             if y is None:
                 y = torch.matmul(x, w)
             f32 = torch.float32
-            stats = torch.stack([
-                x.detach().abs().max().to(f32),
-                w.detach().abs().max().to(f32),
-                y.detach().reshape(-1, y.shape[-1]).to(f32)
-                .std(dim=-1, unbiased=False).max()])
+            y2 = y.detach().reshape(-1, y.shape[-1])
+            if cols is None:
+                sigma = y2.to(f32).std(dim=-1, unbiased=False).max()
+            else:
+                yo = y2[:, cols.owned(group.rank, y2.device)].to(
+                    torch.float64)
+                mom = group.sum(torch.stack([yo.sum(-1), (yo * yo).sum(-1)],
+                                            dim=-1))
+                mean = mom[:, 0] / cols.total
+                var = torch.clamp(mom[:, 1] / cols.total - mean * mean,
+                                  min=0.0)
+                sigma = torch.sqrt(var).max().to(f32)
+            stats = torch.stack([x.detach().abs().max().to(f32),
+                                 w.detach().abs().max().to(f32), sigma])
             prev = self._dev.get(site)
             self._dev[site] = (stats if prev is None
                                else torch.maximum(prev, stats))
+            if group is not None:
+                self._group = group
 
     def finalize(self) -> Calibration:
-        """Per-site entries plus the ``"*"`` merge of every site."""
+        """Per-site entries plus the ``"*"`` merge of every site.  Under a
+        shard group every rank of it must call this at the same point: the
+        ranks' maxima are max-reduced (one collective for every site)."""
         entries = dict(self._acc)
-        for site, t in self._dev.items():
-            x_max, w_max, sigma = t.tolist()
-            st = SiteStats(x_max=x_max + 1e-9, w_max=w_max + 1e-9,
-                           sigma_yo=sigma + 1e-9)
-            entries[site] = (st if site not in entries
-                             else entries[site].merge(st))
+        names = sorted(self._dev)
+        if names:
+            t = torch.stack([self._dev[n] for n in names])
+            if self._group is not None:
+                t = self._group.max(t)
+            for site, (x_max, w_max, sigma) in zip(names, t.tolist()):
+                st = SiteStats(x_max=x_max + 1e-9, w_max=w_max + 1e-9,
+                               sigma_yo=sigma + 1e-9)
+                entries[site] = (st if site not in entries
+                                 else entries[site].merge(st))
         if entries and DEFAULT_SITE not in entries:
             merged = None
             for st in entries.values():

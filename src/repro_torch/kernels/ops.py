@@ -111,11 +111,14 @@ def imc_matmul(x, w, cfg: IMCMatmulConfig, seed: Optional[int] = None,
     the folded noise and the MPC clip; it defaults to the std of the first
     <= 8 rows' ideal code product, a per-batch statistic.
 
-    ``cols = (start, total)`` (bit-serial mode) says that ``w`` holds the
-    columns ``[start, start + M)`` of a ``(K, total)`` weight split by
-    columns over a tensor-parallel group: the mismatch gain is that slice
-    of the whole weight's draw and the kernel's noise sites are the whole
-    weight's columns, so the shards together equal the whole call.
+    ``cols = (segments, total)`` (bit-serial mode) says that ``w`` holds
+    the columns of a ``(K, total)`` weight split by columns over a
+    tensor-parallel group that lie in the global ``(start, stop)``
+    segments, in order (one segment for an equal block; the SSD
+    ``in_proj``'s z, x, B|C and dt on a rank): the mismatch gain is those
+    columns of the whole weight's draw, and the kernel launches once a
+    segment at its global column offset, so its noise sites are the whole
+    weight's and the shards together equal the whole call.
     """
     if x_max is None:
         x_max = _dynamic_max(x)
@@ -160,7 +163,9 @@ def imc_matmul(x, w, cfg: IMCMatmulConfig, seed: Optional[int] = None,
             k_h=cfg.k_h_counts, v_c=cfg.v_c_counts, x_signed=cfg.x_signed,
             apply_adc=True, sigma_noise=cfg.sigma_thermal_counts)
         k, m = w.shape
-        col0, m_total = (0, m) if cols is None else cols
+        segs, m_total = ((0, m),), m
+        if cols is not None:
+            segs, m_total = cols
         w_gain = None
         noise_seed = None
         if seed is not None:
@@ -173,11 +178,21 @@ def imc_matmul(x, w, cfg: IMCMatmulConfig, seed: Optional[int] = None,
                     (k, m_total), generator=gen, device=x.device,
                     dtype=torch.float32)
                 if m_total != m:
-                    w_gain = w_gain[:, col0:col0 + m]
+                    w_gain = torch.cat([w_gain[:, a:b] for a, b in segs],
+                                       dim=1)
             if cfg.sigma_thermal_counts > 0.0:
                 noise_seed = prng.derive_seed(seed, 1)
-        y = imc_mvm.imc_bitserial_matmul(xc, wc, w_gain, spec,
-                                         seed=noise_seed, col0=col0)
+        ys, lo = [], 0
+        for a, b in segs:
+            hi = lo + b - a
+            ys.append(imc_mvm.imc_bitserial_matmul(
+                xc, wc[:, lo:hi], None if w_gain is None else
+                w_gain[:, lo:hi], spec, seed=noise_seed, col0=a))
+            lo = hi
+        if lo != m:
+            raise ValueError(f"column segments {segs} cover {lo} of "
+                             f"{m} columns")
+        y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)
         return y * (dx * dw)
 
     raise ValueError(f"unknown mode {cfg.mode!r}")

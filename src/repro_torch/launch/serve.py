@@ -73,7 +73,11 @@ Engine design (the PyTorch counterpart of ``repro.launch.serve.Engine``):
                        prefill group, a warm prefill or a decode chunk is
                        retried once with the same call on the same device
                        (a decode chunk first puts back the ring rows and
-                       the recurrent states it overwrote).
+                       the recurrent states it overwrote).  Under a mesh
+                       the ranks vote on an error raised before the call's
+                       first collective (the failure injector's), and
+                       retry together; an error inside a collective is not
+                       retried: every rank ends with an error.
                        If it persists, a batched group re-admits each member
                        alone (a poison row fails alone), a warm admission
                        fails its request, and a decode chunk fails only the
@@ -82,17 +86,23 @@ Engine design (the PyTorch counterpart of ``repro.launch.serve.Engine``):
 
   tensor parallelism   with ``mesh=`` (a ``launch.mesh.Mesh`` of shape
                        (1, N)) each rank runs this engine on its shard of
-                       the weights (``launch.sharding``): heads, d_ff,
-                       vocabulary and experts split over the ranks, with
-                       explicit collectives (``core.parallel``).  The paged
-                       pools are head-sharded when N divides Hkv and
-                       replicated otherwise; block tables and the allocator
-                       stay whole on every rank, and the paged-attention
-                       kernel runs per rank at the local layout.  Every rank
-                       runs the same host loop on the same gathered logits,
-                       so every scheduling decision agrees.  Drift
-                       monitoring, fault retries, R > 1 and recurrent
-                       patterns raise under a mesh of N > 1.
+                       the weights (``launch.sharding``): query heads, SSD
+                       heads, the RG-LRU width, d_ff, vocabulary and experts
+                       split over the ranks, with explicit collectives
+                       (``core.parallel``); a unit that does not divide N
+                       stays whole on every rank and its sites run with no
+                       collective.  The paged pools are head-sharded when N
+                       divides Hkv and replicated otherwise; block tables
+                       and the allocator stay whole on every rank, and the
+                       paged-attention kernel runs per rank at the local
+                       layout.  Recurrent states hold the rank's heads or
+                       channels.  Every rank runs the same host loop on the
+                       same gathered logits, so every scheduling decision
+                       agrees; calibration and drift statistics are reduced
+                       over the group, so every rank swaps at the same
+                       chunk; a transient error before a call's first
+                       collective is voted on, and every rank retries
+                       together.  Only R > 1 raises.
 
 Greedy sampling.  Noise seeds are integers (``rng``); with a frozen
 calibration and ``rng=None`` the batched engine equals sequential execution,
@@ -340,7 +350,7 @@ class Engine:
         self.tp = mesh_lib.axis_size(mesh, "model") if mesh else 1
         self.group = None  # the shard group, when tp > 1
         if mesh is not None:
-            self._check_mesh(cfg, mesh, drift_monitor, failure_injector)
+            self._check_mesh(cfg, mesh)
         if self.tp > 1:
             self.group = sharding.shard_group(cfg, mesh)
         # head-sharded pools (else replicated, or one device's)
@@ -421,12 +431,18 @@ class Engine:
         self.cache = cache
         # every layer group's cache with a leading layer axis: the pattern
         # positions' stacked leaves, and views of each remainder layer's
-        self._groups = list(cache["blocks"].values()) + [
-            map_leaves(lambda t: t[None], c)
-            for c in cache.get("tail", {}).values()]
-        # this rank's pools; head-sharded pools hold 1/tp of the whole
-        self._block_bytes, self._fixed_kv_bytes = self._kv_accounting()
-        self._kv_ranks = self.tp if self.kv_shard else 1
+        self._groups = _layer_groups(cache)
+        # this rank's pools, rings and states
+        (self._block_bytes, self._fixed_kv_bytes,
+         self.state_bytes_per_slot) = self._kv_accounting(self._groups)
+        # the whole cache (one device's): head-sharded pools and the
+        # recurrent states' rank shares counted once each
+        self._whole_kv = (self._block_bytes, self._fixed_kv_bytes)
+        if self.group is not None:
+            meta = init_paged_cache(cfg, batch_slots, self.cache_len,
+                                    kv_blocks, block_size, device="meta")
+            meta.pop("pos")
+            self._whole_kv = self._kv_accounting(_layer_groups(meta))[:2]
         if self.prefix is not None and self._fixed_kv_bytes > 0:
             # a contiguous ring or recurrent leaf: part of the per-request
             # state is not addressable through block tables
@@ -449,6 +465,10 @@ class Engine:
         self.shed_requests = 0
         self.preempt_count = 0
         self.substrate_swaps = 0
+        # retried calls, and (under a mesh) the fault votes and their time
+        self.retries = 0
+        self.votes = 0
+        self.vote_seconds = 0.0
         # pool-utilization accounting, sampled once per decode chunk
         self._util_token_sum = 0
         self._util_cap_sum = 0
@@ -458,8 +478,9 @@ class Engine:
 
     # -- tensor parallelism ---------------------------------------------------
     @staticmethod
-    def _check_mesh(cfg, mesh, drift_monitor, failure_injector):
-        """Refuse what this port does not shard yet (ROADMAP)."""
+    def _check_mesh(cfg, mesh):
+        """Refuse what this port does not shard yet (ROADMAP): slots over
+        data replicas."""
         if mesh.data != 1:
             raise ValueError(f"a {mesh.data}x{mesh.model} mesh shards slots "
                              "over data replicas, which is not served yet: "
@@ -469,25 +490,16 @@ class Engine:
         tp = mesh.model
         if tp == 1:
             return
-        kinds = set(cfg.pattern) | set(cfg.tail_kinds)
-        if not kinds <= {"attn", "local"}:
-            raise ValueError(f"pattern {sorted(kinds)}: SSD and RG-LRU "
-                             "blocks are not tensor-parallel yet")
-        if cfg.n_heads % tp:
-            raise ValueError(f"{cfg.n_heads} query heads do not divide over "
-                             f"{tp} ranks")
         if sharding.kv_sharded(cfg, tp):
             # contiguous per-rank head ranges; raises on uneven splits
             sharding.kv_head_partition(cfg.n_kv_heads, tp)
         else:
             log.info("KV pools replicated: %d KV heads do not divide the "
                      "%d-way model axis", cfg.n_kv_heads, tp)
-        if drift_monitor is not None:
-            raise ValueError("drift monitoring reads per-rank statistics: "
-                             "not served under a mesh yet")
-        if failure_injector is not None:
-            raise ValueError("fault retries are per rank: not served under a "
-                             "mesh yet")
+        whole = sharding.replicated_sites(cfg, tp)
+        if whole:
+            log.info("replicated on every rank (their units do not divide "
+                     "the %d-way model axis): %s", tp, sorted(whole))
 
     @property
     def mesh_shape(self) -> Optional[str]:
@@ -496,35 +508,75 @@ class Engine:
             return None
         return f"{self.mesh.data}x{self.mesh.model}"
 
-    def _retried(self, fn, describe: str):
-        """``fn()``, retried once on a transient device error.  Under a mesh
-        a retry on one rank alone would leave the others waiting in a
-        collective, so the error propagates there."""
-        if self.group is not None:
+    def _retried(self, fn, describe: str, phase: str, info, undo=None):
+        """``fn()`` after the failure injector's call ``(phase, info)``,
+        retried once on a transient device error (``undo()`` first puts
+        back what a failed run overwrote).
+
+        Under a mesh a retry on one rank alone would leave the others
+        waiting in a collective, so where an injector runs (every rank
+        builds its engine with one) the ranks vote: after the injector,
+        before ``fn``'s first collective, every rank says whether it failed
+        (a host-side all-reduce, ``ShardGroup.vote``), and if any did,
+        every rank undoes and retries together.  Without an injector
+        nothing can fail before that collective, and there is no vote.  An
+        error inside ``fn`` is raised inside a collective, where the others
+        cannot hear of it: it is not retried, and every rank ends with an
+        error (the others when their next collective times out,
+        ``launch.mesh.RANK_TIMEOUT``)."""
+        transient = fault_lib.is_transient_device_error
+        for attempt in range(2):
+            err = None
             try:
-                return fn()
+                if self.failure_injector is not None:
+                    self.failure_injector(phase, info)
+                if self.group is None:
+                    return fn()
             except Exception as e:
-                if fault_lib.is_transient_device_error(e):
-                    raise RuntimeError(f"{describe} failed on rank "
-                                       f"{self.group.rank}: a device error "
-                                       "is not retried under a mesh") from e
-                raise
-        return fault_lib.call_with_retries(
-            fn, 1, retryable=fault_lib.is_transient_device_error,
-            describe=describe, logger=log)
+                if not transient(e):
+                    raise
+                err = e
+            if self.group is not None:
+                failed = err is not None
+                if self.failure_injector is not None:
+                    t0 = time.perf_counter()
+                    failed = self.group.vote(failed)
+                    self.vote_seconds += time.perf_counter() - t0
+                    self.votes += 1
+                if not failed:
+                    try:
+                        return fn()
+                    except Exception as e:
+                        if transient(e):
+                            raise RuntimeError(
+                                f"{describe} failed on rank "
+                                f"{self.group.rank} inside a collective: not "
+                                "retried under a mesh") from e
+                        raise
+                if err is None:
+                    err = fault_lib.TransientDeviceError(
+                        f"{describe} failed on another rank")
+            if undo is not None:
+                undo()
+            if attempt:
+                raise err
+            self.retries += 1
+            log.warning("%s attempt 0 failed: %r; retrying", describe, err)
+        raise AssertionError("unreachable")
 
     # -- bookkeeping ----------------------------------------------------------
     def _paged_layers(self):
         """The stacked {"pk","pv","bt"} dict of every paged layer group."""
         return [c for c in self._groups if "pk" in c]
 
-    def _kv_accounting(self) -> Tuple[int, int]:
+    def _kv_accounting(self, groups) -> Tuple[int, int, int]:
         """(bytes per physical block summed over the paged layers, bytes of
         the always-allocated contiguous per-slot leaves: sliding-window rings
-        and recurrent states).  The reference counts the rings only;
+        and recurrent states, the recurrent part's bytes per slot) of a
+        cache's layer groups.  The reference counts the rings only;
         ``state_bytes_per_slot`` is the recurrent part."""
         block_bytes = fixed = state = 0
-        for c in self._groups:
+        for c in groups:
             if "pk" in c:
                 for leaf in (c["pk"], c["pv"]):  # (L, NB, bs, Hkv, hd)
                     block_bytes += (leaf.numel() // leaf.shape[1]
@@ -535,18 +587,20 @@ class Engine:
                 fixed += n
                 if key not in ("k", "v"):
                     state += n
-        self.state_bytes_per_slot = state // self.batch_slots
-        return block_bytes, fixed
+        return block_bytes, fixed, state // self.batch_slots
 
     def kv_pool_bytes(self) -> int:
         """Bytes of the whole KV cache: every physical block plus the
-        rings and recurrent states (over every rank of a head-sharded
-        mesh)."""
-        return self.kv_pool_bytes_per_device() * self._kv_ranks
+        rings and recurrent states, as one device holds them (a mesh's
+        head-sharded pools and state shares over every rank, its
+        replicated ones once)."""
+        block_bytes, fixed = self._whole_kv
+        return fixed + self.alloc.num_blocks * block_bytes
 
     def kv_pool_bytes_per_device(self) -> int:
         """Bytes of the KV cache on this rank's device: head-sharded pools
-        and rings carry 1/tp of the whole, replicated ones all of it."""
+        and rings and the recurrent states carry this rank's share,
+        replicated ones all of it."""
         return (self._fixed_kv_bytes
                 + self.alloc.num_blocks * self._block_bytes)
 
@@ -726,8 +780,6 @@ class Engine:
         dev = self.device
 
         def run_pf():
-            if self.failure_injector is not None:
-                self.failure_injector("prefill", rids)
             with self._shadow(shadow), parallel.use(self.group):
                 logits, cache1 = prefill(
                     self.params, self.cfg, torch.as_tensor(toks, device=dev),
@@ -738,7 +790,7 @@ class Engine:
 
         try:
             tok0, cache1 = self._retried(
-                run_pf, f"prefill group rids={list(rids)}")
+                run_pf, f"prefill group rids={list(rids)}", "prefill", rids)
         except Exception as e:
             if not fault_lib.is_transient_device_error(e):
                 raise  # kernel and programming faults surface
@@ -1009,14 +1061,13 @@ class Engine:
         bt_row[: len(blocks)] = blocks
 
         def run_warm():
-            if self.failure_injector is not None:
-                self.failure_injector("prefill", (req.rid,))
             return self._warm_prefill(slot, bt_row, pvec[start:], start,
                                       self._next_key())
 
         try:
             last_token, pos, tok0 = self._retried(
-                run_warm, f"warm prefill rid={req.rid}")
+                run_warm, f"warm prefill rid={req.rid}", "prefill",
+                (req.rid,))
         except Exception as e:
             if not fault_lib.is_transient_device_error(e):
                 raise
@@ -1144,15 +1195,24 @@ class Engine:
         frontier degradation).  The live frozen calibration, if any, is
         re-attached to the incoming substrate, so its site names are kept;
         ``time_scale`` is the new virtual cost of a decode step (a degraded
-        design point's frontier delay ratio, < 1)."""
+        design point's frontier delay ratio, < 1).  Under a mesh, a row
+        site that moves on or off the bit-serial substrate is re-placed
+        (``sharding.replace_params``)."""
         sub = substrate_lib.as_substrate(substrate)
         if self.substrate.policy == "frozen":
             sub = sub.frozen(self.substrate.calibration)
-        if (self.group is not None and sharding.row_sites_by_columns(
-                self.cfg.replace(imc=sub)) != self.group.row_columns):
-            raise ValueError("the incoming substrate moves a row-parallel "
-                             "site on or off the bit-serial path, which "
-                             "would re-place its weights across the mesh")
+        if self.group is not None:
+            # a row site moving on or off bit-serial is placed by output
+            # columns there and by rows elsewhere: its shards are gathered
+            # and cut again (every rank swaps at the same chunk)
+            new_cfg = self.cfg.replace(imc=sub)
+            cols = (sharding.row_sites_by_columns(new_cfg)
+                    - self.group.replicated)
+            if cols != self.group.row_columns:
+                self.params = sharding.replace_params(
+                    self.params, self.cfg, new_cfg, self.group)
+                self.group = dataclasses.replace(self.group,
+                                                 row_columns=cols)
         old = self.substrate
         self.substrate = sub
         self.cfg = self.cfg.replace(imc=sub)
@@ -1276,19 +1336,14 @@ class Engine:
         saved = self._save_state(n_steps)
 
         def run_chunk():
-            if self.failure_injector is not None:
-                self.failure_injector("decode", self.decode_calls)
-            try:
-                with self._shadow(shadow):
-                    return self._run_chunk(n_steps, active, key)
-            except Exception as e:
-                if fault_lib.is_transient_device_error(e):
-                    self._restore_state(saved)
-                raise
+            with self._shadow(shadow):
+                return self._run_chunk(n_steps, active, key)
 
         try:
             block = self._retried(run_chunk,
-                                  f"decode chunk {self.decode_calls}")
+                                  f"decode chunk {self.decode_calls}",
+                                  "decode", self.decode_calls,
+                                  undo=lambda: self._restore_state(saved))
         except Exception as e:
             if not fault_lib.is_transient_device_error(e):
                 raise  # kernel and programming faults surface
@@ -1331,6 +1386,14 @@ class Engine:
         if shadow:
             self._maybe_check_drift()
         return block
+
+
+def _layer_groups(cache) -> list:
+    """Every layer group's cache with a leading layer axis: the pattern
+    positions' stacked leaves, and views of each remainder layer's."""
+    return list(cache["blocks"].values()) + [
+        map_leaves(lambda t: t[None], c)
+        for c in cache.get("tail", {}).values()]
 
 
 def serve(engine: Engine, requests: List[Request]) -> List[Request]:
@@ -1636,7 +1699,7 @@ def main(argv=None) -> dict:
         base = torch.cuda.memory_allocated(device)
         torch.cuda.reset_peak_memory_stats(device)
     frozen = bool(args.imc_mode) and args.imc_policy == "frozen"
-    if mesh is not None and not frozen:
+    if mesh is not None:
         # this rank's shard, drawn without the whole model
         params = sharding.init_params(cfg, mesh, seed=args.seed,
                                       device=device)
@@ -1650,20 +1713,20 @@ def main(argv=None) -> dict:
     if init_peak is not None:
         log.info("initialized %s: %d weight bytes, peak device memory %d "
                  "bytes", cfg.name, weight_bytes, init_peak)
-    if args.imc_mode and args.imc_policy == "frozen":
+    if frozen:
         # frozen ranges from a seeded reference batch; the engine-wide noise
-        # seed goes too (its draws are shaped by the batch)
+        # seed goes too (its draws are shaped by the batch).  Under a mesh
+        # each rank records its shards and the group reduces the ranges
         rng = None
         ref = np.random.default_rng(args.seed + 1).integers(
             0, cfg.vocab_size, (2, max(lens)))
-        cfg = substrate_lib.calibrate_model(cfg, params, [ref])
+        group = (sharding.shard_group(cfg, mesh)
+                 if mesh is not None and mesh.model > 1 else None)
+        with parallel.use(group):
+            cfg = substrate_lib.calibrate_model(cfg, params, [ref])
         log.info("froze substrate calibration on a %s reference batch "
                  "(%d sites)", ref.shape,
                  len(cfg.imc.calibration.site_names()))
-        if mesh is not None:
-            # calibrated on the whole model; each rank keeps its shard
-            params = sharding.shard_params(params, cfg, mesh)
-            weight_bytes = param_bytes(params)
     bucketable = not needs_exact_prefill(cfg)
     max_bucket = max(prefill_bucket(n + args.shared_prefix_len, bucketable,
                                     10**9) for n in lens)

@@ -162,8 +162,8 @@ def init_paged_cache(cfg: ArchConfig, batch: int, cache_len: int,
 def _embed_lookup(table, tokens):
     """``table[tokens]``; under an active shard group the table holds this
     rank's vocabulary rows, so the rows it lacks are zeros and the group's
-    sum is the whole lookup."""
-    tp = parallel.active()
+    sum is the whole lookup (a replicated table is whole on every rank)."""
+    tp = parallel.active_for("embed")
     if tp is None:
         return table[tokens]
     rows = table.shape[0]
@@ -182,7 +182,7 @@ def _embed_inputs(params, cfg: ArchConfig, tokens, prefix_embeds, positions):
         x = torch.cat([prefix_embeds.to(x.dtype), x[:, p:]], dim=1)
     if cfg.pos_kind == "learned":
         pos = params["pos_table"][positions]
-        tp = parallel.active()
+        tp = parallel.active_for("pos_table")
         if tp is not None:  # the table is split over d_model
             pos = tp.gather(pos)
         x = x + pos
@@ -198,7 +198,7 @@ def _head(params, cfg: ArchConfig, x):
     else:
         logits = linear(params["lm_head"], x, cfg.imc, site="lm_head",
                         split="col")
-    tp = parallel.active()
+    tp = parallel.active_for("embed" if cfg.tie_embeddings else "lm_head")
     if tp is not None:
         # this rank's vocabulary columns: gathered whole before the argmax,
         # so a tie picks the single device's token

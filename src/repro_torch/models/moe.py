@@ -17,7 +17,8 @@ the same noise seed (the reference vmaps one key over the experts).
 Under tensor parallelism (an active ``core.parallel`` shard group) the
 experts and the router's columns are split over the ranks: every rank
 routes with the gathered E logits, runs its own experts, and the weighted
-slot outputs are summed over the group.
+slot outputs are summed over the group.  Experts that do not divide the
+group are replicated (the ``"moe"`` site), and every rank runs them all.
 """
 from __future__ import annotations
 
@@ -99,7 +100,7 @@ def apply_moe(params, x, n_experts: int, top_k: int, capacity_factor: float,
     xg = xt.reshape(n_groups, g_sz, d)
     cap = max(int(-(-top_k * g_sz * capacity_factor // n_experts)), 1)
 
-    tp = parallel.active()
+    tp = parallel.active_for("moe")
     logits = torch.einsum("ngd,de->nge", xg.to(torch.float32),
                           params["router"])
     if tp is not None:

@@ -14,12 +14,19 @@ The linear recurrence runs over the sequence as a log-depth associative scan
 (the same pairing tree as ``jax.lax.associative_scan``, so the products are
 formed in the reference's order) and as one step for decode.  Decode updates
 its cache in place.
+
+Under tensor parallelism (an active ``core.parallel`` shard group that the
+width divides) a rank holds its share of the width channels: ``rg_x`` and
+``rg_gate`` are column sites, the conv, the gates and the scan run on its
+channels (all per channel, so its values are the single device's), and
+``rg_out`` is a row site.  The cache holds the rank's channels.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import parallel
 from repro_torch.core.imc_linear import DIGITAL, IMCConfig, linear
 from repro_torch.models.layers import dense_init
 from repro_torch.models.ssm import causal_conv, conv_step
@@ -103,9 +110,10 @@ def rglru_forward(params, x, cfg, imc: IMCConfig = DIGITAL, rng=None,
                   h0=None):
     """Full-sequence RG block. x: (B, S, d_model).  Returns (y, h_last
     (B, W) float32)."""
-    xb = linear(params["rg_x"], x, imc, rng, site="rg.x")  # (B, S, W)
-    gate = _gelu(linear(params["rg_gate"], x, imc, rng,
-                        site="rg.gate").to(torch.float32))
+    xb = linear(params["rg_x"], x, imc, rng, site="rg.x",
+                split="col")  # (B, S, W)
+    gate = _gelu(linear(params["rg_gate"], x, imc, rng, site="rg.gate",
+                        split="col").to(torch.float32))
     xb = causal_conv(xb, params["conv_w"], params["conv_b"])
     a, gx = _gates(params, xb)  # (B, S, W) f32
     if h0 is not None:
@@ -117,11 +125,16 @@ def rglru_forward(params, x, cfg, imc: IMCConfig = DIGITAL, rng=None,
         a[:, 0] = 0.0
     _, h = associative_scan(a, gx)
     y = (h * gate).to(x.dtype)
-    out = linear(params["rg_out"], y, imc, rng, site="rg.out")
+    out = linear(params["rg_out"], y, imc, rng, site="rg.out", split="row")
     return out, h[:, -1].to(torch.float32)
 
 
 def init_rglru_cache(batch: int, width: int, conv_width: int, dtype, device):
+    """A slot's state and conv inputs (this rank's channels under a shard
+    group)."""
+    tp = parallel.active_for("rg.x")
+    if tp is not None:
+        width //= tp.size
     return {
         "conv": torch.zeros((batch, conv_width - 1, width), dtype=dtype,
                             device=device),
@@ -132,15 +145,16 @@ def init_rglru_cache(batch: int, width: int, conv_width: int, dtype, device):
 def rglru_decode(params, x, cache, cfg, imc: IMCConfig = DIGITAL, rng=None):
     """One-token step. x: (B, 1, d_model).  Writes the new conv inputs and
     state into ``cache``; returns (y, cache)."""
-    xb = linear(params["rg_x"], x, imc, rng, site="rg.x")  # (B, 1, W)
-    gate = _gelu(linear(params["rg_gate"], x, imc, rng,
-                        site="rg.gate").to(torch.float32))
+    xb = linear(params["rg_x"], x, imc, rng, site="rg.x",
+                split="col")  # (B, 1, W)
+    gate = _gelu(linear(params["rg_gate"], x, imc, rng, site="rg.gate",
+                        split="col").to(torch.float32))
     hist = torch.cat([cache["conv"], xb.to(cache["conv"].dtype)], dim=1)
     a, gx = _gates(params, conv_step(hist, params["conv_w"],
                                      params["conv_b"]))  # (B, 1, W)
     h = a[:, 0] * cache["h"] + gx[:, 0]  # (B, W)
     y = (h[:, None, :] * gate).to(x.dtype)
-    out = linear(params["rg_out"], y, imc, rng, site="rg.out")
+    out = linear(params["rg_out"], y, imc, rng, site="rg.out", split="row")
     cache["conv"].copy_(hist[:, 1:])
     cache["h"].copy_(h)
     return out, cache

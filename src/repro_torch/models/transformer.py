@@ -48,10 +48,13 @@ def check_kind(kind: str):
 def attn_dims(cfg: ArchConfig, kind: str) -> attn_lib.AttnDims:
     """The attention geometry of a block; under an active shard group
     (``core.parallel``) this rank's: its query heads, and the KV heads it
-    holds (its share, or all of them when they are replicated)."""
+    holds (its share, or all of them when they are replicated).  Where
+    the query heads do not divide the group the attention is replicated
+    (``launch.sharding.attention_whole``): every rank holds every head and
+    the block's sites run with no collective."""
     hd = cfg.resolved_head_dim
     n_heads, n_kv, kv_head = cfg.n_heads, cfg.n_kv_heads, None
-    tp = parallel.active()
+    tp = parallel.active_for(f"{kind}.wq")
     if tp is not None:
         n_heads = cfg.n_heads // tp.size
         if tp.kv_shard:
@@ -228,17 +231,14 @@ def _pack_ssm_cache(p, h_in, state, cfg: ArchConfig, dtype):
     inputs, projected again without noise (as the reference does; a prompt
     shorter than ``conv_width - 1`` leaves fewer rows, which the engine's
     insert right-pads)."""
-    proj = linear(p["mixer"]["in_proj"], h_in[:, -(cfg.conv_width - 1):],
-                  cfg.imc, site="ssm.in_proj")
-    d_inner = cfg.ssm_expand * cfg.d_model
-    gn = cfg.ssm_groups * cfg.ssm_state
-    xbc = proj[..., d_inner: 2 * d_inner + 2 * gn]
+    _, xbc, _, _, _ = ssm_lib.split_proj(
+        p["mixer"], h_in[:, -(cfg.conv_width - 1):], cfg, cfg.imc, None)
     return {"conv": xbc.to(dtype), "state": state}
 
 
 def _pack_rglru_cache(p, h_in, h_last, cfg: ArchConfig, dtype):
     xb = linear(p["mixer"]["rg_x"], h_in[:, -(cfg.rnn_conv_width - 1):],
-                cfg.imc, site="rg.x")
+                cfg.imc, site="rg.x", split="col")
     return {"conv": xb.to(dtype), "h": h_last}
 
 

@@ -45,6 +45,7 @@ from repro_torch.models import forward as t_forward
 from repro_torch.models import init_params as t_init_params
 from repro_torch.models import param_bytes
 from repro_torch.models import prefill as t_prefill
+from torch_threads import two_threads  # noqa: F401  (autouse)
 
 ARCHS = ["phi3-mini-3.8b", "deepseek-coder-33b", "granite-20b", "gemma2-9b"]
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -35,6 +35,7 @@ from repro_torch.models import init_params as t_init_params
 from repro_torch.models import prefill as t_prefill
 from repro_torch.runtime import fault as t_fault
 from test_torch_archs import ARCHS, TINY, _np, _smoke, _windowed
+from torch_threads import two_threads  # noqa: F401  (autouse)
 
 
 _CALIBRATIONS = {}

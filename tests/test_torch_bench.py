@@ -34,6 +34,7 @@ from repro_torch.benchmarks import layer_snr, paper_figures, run
 from repro_torch.core import mc
 from repro_torch.core.archs import CMArch, QRArch, QSArch
 from repro_torch.kernels import ref
+from torch_threads import two_threads  # noqa: F401  (autouse)
 
 
 def _codes(rng, b, k, m, bx, bw, x_signed):

@@ -331,6 +331,36 @@ def test_bitserial_kernel_column_shards_match_the_whole_call(dev):
     assert torch.equal(torch.cat(parts, dim=1), whole)
 
 
+def test_bitserial_segments_match_the_whole_call(dev):
+    """mamba2-2.7b's ``in_proj`` as a rank of a 1x4 mesh holds it (its
+    ``z``, ``x`` and ``dt`` heads beside the whole ``B|C`` columns, one
+    launch a segment), noise and gain on, at full width: each rank's
+    ``ops.imc_matmul`` equals the same columns of the whole call, bit for
+    bit."""
+    from repro_torch import configs
+    from repro_torch.models import ssm
+
+    cfg = configs.get("mamba2-2.7b")
+    layout = ssm.in_proj_columns(cfg, 4)
+    mcfg = ops.IMCMatmulConfig(bx=7, bw=7, b_adc=10, rows=256, sigma_d=0.05,
+                               sigma_thermal_counts=0.3, k_h_counts=60.0,
+                               v_c_counts=55.0)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn((4, cfg.d_model), generator=gen, device=dev)
+    w = torch.randn((cfg.d_model, layout.total), generator=gen, device=dev)
+    x_max, w_max = x.abs().max(), w.abs().max()
+    whole = ops.imc_matmul(x, w, mcfg, seed=7, x_max=x_max, w_max=w_max)
+    for r in range(4):
+        idx = layout.index(r, dev)
+        before = imc_mvm.bitserial_cuda.launches
+        y = ops.imc_matmul(x, w[:, idx], mcfg, seed=7, x_max=x_max,
+                           w_max=w_max, cols=(layout.ranks[r], layout.total))
+        torch.cuda.synchronize()
+        assert imc_mvm.bitserial_cuda.launches - before == len(
+            layout.ranks[r])
+        assert torch.equal(y, whole[:, idx]), r
+
+
 def _analytic_operands(dev, b, k, m, seed=2):
     rng = np.random.default_rng(seed)
     xc = torch.tensor(np.round(rng.normal(size=(b, k)) * 10),

@@ -22,6 +22,7 @@ from repro_torch.core import design as t_design
 from repro_torch.core import mapping as t_mapping
 from repro_torch.core import scaling as t_scaling
 from repro_torch.core import substrate as t_substrate
+from torch_threads import two_threads  # noqa: F401  (autouse)
 
 ARCH = "musicgen-medium"
 REL = 1e-12

@@ -51,6 +51,7 @@ from repro_torch.runtime.drift import (
     refreshed_calibration,
     site_snr_table,
 )
+from torch_threads import two_threads  # noqa: F401  (autouse)
 
 ARCH = "musicgen-medium"
 

@@ -44,6 +44,7 @@ from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import paged_attention as t_pa
 from repro_torch.kernels import prng as t_prng
 from repro_torch.kernels import ref as t_ref
+from torch_threads import two_threads  # noqa: F401  (autouse)
 
 SCALE = 0.25
 

@@ -32,6 +32,7 @@ from repro.core import archs as j_archs
 from repro.core import mc as j_mc
 from repro_torch.core import archs as t_archs
 from repro_torch.core import mc
+from torch_threads import two_threads  # noqa: F401  (autouse)
 
 ENS = 600
 

@@ -24,6 +24,7 @@ from repro_torch.core import substrate as t_substrate
 from repro_torch.core.mapping import MatmulShape as TShape
 from repro_torch.launch import metering as t_metering
 from repro_torch.launch import serve as t_serve
+from torch_threads import two_threads  # noqa: F401  (autouse)
 
 ARCH = "musicgen-medium"
 SITES = [("a", 512, 4, 2), ("b", 1280, 8, 1), ("lm_head", 512, 16, 1)]

@@ -52,6 +52,7 @@ from torch_zoo import (
     run_engine,
     setup,
 )
+from torch_threads import two_threads  # noqa: F401  (autouse)
 
 ARCHS = ["granite-moe-1b-a400m", "dbrx-132b"]
 TOL = dict(rtol=1e-5, atol=1e-5)

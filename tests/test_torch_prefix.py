@@ -33,6 +33,7 @@ from repro_torch.core.substrate import calibrate_model as t_calibrate
 from repro_torch.launch import serve as t_serve
 from repro_torch.launch.serve import BlockAllocator, Engine, Request, serve
 from repro_torch.runtime.prefix_cache import PrefixCache
+from torch_threads import two_threads  # noqa: F401  (autouse)
 
 ARCH = "musicgen-medium"
 SUBSTRATES = ["digital", "imc_analytic", "imc_bitserial"]

@@ -50,6 +50,7 @@ from torch_zoo import (
     run_engine,
     setup,
 )
+from torch_threads import two_threads  # noqa: F401  (autouse)
 
 ARCHS = ["mamba2-2.7b", "recurrentgemma-2b"]
 TOL = dict(rtol=1e-5, atol=1e-5)

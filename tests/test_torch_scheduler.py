@@ -22,6 +22,7 @@ from repro_torch.launch import metering as t_metering
 from repro_torch.launch import scheduler as t_scheduler
 from repro_torch.launch.serve import Request as TRequest
 from repro_torch.runtime import workload as t_workload
+from torch_threads import two_threads  # noqa: F401  (autouse)
 
 
 def _queue(cls, seed, n=12):

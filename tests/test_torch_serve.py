@@ -30,6 +30,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.core.imc_linear import IMCConfig as TIMC
 from repro_torch.core.substrate import calibrate_model as t_calibrate
 from repro_torch.launch import serve as t_serve
+from torch_threads import two_threads  # noqa: F401  (autouse)
 
 ARCH = "musicgen-medium"
 MIXED_LENS = [4, 6, 48, 5, 8, 44, 6, 7]

@@ -13,12 +13,22 @@ with a seed and idle slots, and frozen analytic with a seed against the
 port's one device; the same preemption schedule in a tight pool; dbrx-132b
 SMOKE (expert-sharded MoE) at 1x4 (replicated pools, Hkv = 2) and 1x2
 (head-sharded), and granite-20b SMOKE (MQA, replicated pools) against the
-JAX engine.
+JAX engine.  Against the port's one device (itself held against the JAX
+engine in ``test_torch_recurrent.py``, ``test_torch_drift.py`` and
+``test_torch_serve.py``): mamba2-2.7b SMOKE (8 SSD heads, 2 a rank) on
+digital and dynamic bit-serial with a noise seed, recurrentgemma-2b SMOKE
+with 6 query heads (replicated attention beside a sharded RG-LRU width),
+musicgen-medium frozen analytic calibrated on the ranks' shards (the
+calibration held site by site), a drift run with every chunk sampled and
+checked, a transient error injected on rank 2 alone, and a frozen
+analytic to bit-serial substrate swap between chunks.
 """
+import inspect
 import json
 import os
 import subprocess
 import sys
+import textwrap
 
 import jax
 import numpy as np
@@ -40,8 +50,10 @@ from repro_torch.kernels import ops, ref
 from repro_torch.launch import mesh as t_mesh
 from repro_torch.launch import serve as t_serve
 from repro_torch.launch import sharding as t_shd
+from repro_torch.models import ssm as t_ssm
 from repro_torch.models import init_params as t_init_params
-from repro_torch.tree import map_with_path, walk
+from repro_torch.tree import walk
+from torch_threads import two_threads  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TP = 4
@@ -143,30 +155,51 @@ def test_meshes_of_one_rank_match_reference():
         j_mesh.axis_size(mesh, "pod"), j_mesh.dp_size(mesh))
 
 
-def test_sharded_init_draws_the_whole_models_shards():
+RG6 = t_configs.get_smoke("recurrentgemma-2b").replace(n_heads=6)
+
+
+@pytest.mark.parametrize("arch", [MUSIC, "dbrx-132b", "granite-20b",
+                                  "mamba2-2.7b", "recurrentgemma-2b", "rg6"])
+def test_sharded_init_draws_the_whole_models_shards(arch):
     """Each rank's ``sharding.init_params`` equals its cut of the whole
-    model's draw, and the cuts put together are the whole."""
-    for arch in (MUSIC, "dbrx-132b", "granite-20b"):
-        cfg = t_configs.get_smoke(arch)
-        whole = t_init_params(cfg, seed=3, device="cpu")
-        shards = []
-        for r in range(TP):
-            mesh = t_mesh.Mesh(1, TP, None, r)
-            mine = t_shd.init_params(cfg, mesh, seed=3, device="cpu")
-            cut = t_shd.shard_params(whole, cfg, mesh)
-            for (p, a), (_, b) in zip(walk(mine), walk(cut)):
-                assert torch.equal(a, b), (arch, r, p)
-            shards.append(mine)
-        specs = map_with_path(lambda p, t: t_shd.serve_param_spec(
-            cfg, TP, p, t.dim(), p[0] == "blocks"), whole)
-        for path, t in walk(whole):
-            spec = dict(walk(specs))[path]
-            parts = [dict(walk(s))[path] for s in shards]
-            if "model" in spec:
-                t2 = torch.cat(parts, dim=spec.index("model"))
-            else:
-                t2 = parts[0]
-            assert torch.equal(t2, t), (arch, path)
+    model's draw, and the cuts put together are the whole: blocks side by
+    side, the SSD ``in_proj`` and conv by their segments (the ``B|C``
+    columns on every rank), replicated leaves (recurrentgemma's attention
+    with 6 query heads) whole on every rank."""
+    cfg = RG6 if arch == "rg6" else t_configs.get_smoke(arch)
+    whole = t_init_params(cfg, seed=3, device="cpu")
+    shards = []
+    for r in range(TP):
+        mesh = t_mesh.Mesh(1, TP, None, r)
+        mine = t_shd.init_params(cfg, mesh, seed=3, device="cpu")
+        cut = t_shd.shard_params(whole, cfg, mesh)
+        for (p, a), (_, b) in zip(walk(mine), walk(cut)):
+            assert torch.equal(a, b), (arch, r, p)
+        shards.append(dict(walk(mine)))
+    specs = dict(walk(t_shd.placed_specs(whole, cfg, t_mesh.Mesh(1, TP))))
+    split = set()
+    for path, t in walk(whole):
+        spec, parts = specs[path], [s[path] for s in shards]
+        cols = t_shd.leaf_columns(cfg, TP, path)
+        if "model" not in spec:
+            assert all(torch.equal(q, t) for q in parts), (arch, path)
+            continue
+        dim = spec.index("model")
+        split.add("/".join(path[2:]))
+        if cols is None:
+            t2 = torch.cat(parts, dim=dim)
+        else:
+            t2 = torch.full_like(t, float("nan"))
+            for r, q in enumerate(parts):
+                t2.index_copy_(dim, cols.index(r), q)
+        assert torch.equal(t2, t), (arch, path)
+    if arch == "rg6":  # 6 heads over 4 ranks: the attention stays whole
+        assert not split & {f"mixer/{n}" for n in ("wq", "wk", "wv", "wo")}
+        assert {"mixer/rg_x", "mixer/rg_out", "mixer/rg_a", "mixer/conv_w",
+                "mlp/wi", "mlp/wo"} <= split
+    if arch == "mamba2-2.7b":
+        assert {f"mixer/{n}" for n in ("in_proj", "conv_w", "A_log",
+                                       "norm_scale", "out_proj")} <= split
 
 
 # ---------------------------------------------------------------------------
@@ -177,7 +210,8 @@ def test_sharded_init_draws_the_whole_models_shards():
 def test_bitserial_column_shards_equal_the_whole_call():
     """With noise and the mismatch gain on, the shards' outputs side by
     side equal the whole call bit for bit: the plain version at a column
-    offset, and ``ops.imc_matmul`` with its slice of the gain draw."""
+    offset, and ``ops.imc_matmul`` with its slice of the gain draw, by
+    one block or by a rank's segments."""
     g = torch.Generator().manual_seed(0)
     b, k, m = 3, 80, 24
     spec = ref.BitSerialSpec(bx=7, bw=7, b_adc=6, rows=32, k_h=20.0,
@@ -200,23 +234,118 @@ def test_bitserial_column_shards_equal_the_whole_call():
     x_max, w_max = x.abs().max(), w.abs().max()
     whole = ops.imc_matmul(x, w, cfg, seed=7, x_max=x_max, w_max=w_max)
     parts = [ops.imc_matmul(x, w[:, r * per:(r + 1) * per], cfg, seed=7,
-                            x_max=x_max, w_max=w_max, cols=(r * per, m))
+                            x_max=x_max, w_max=w_max,
+                            cols=(((r * per, (r + 1) * per),), m))
              for r in range(TP)]
     assert torch.equal(torch.cat(parts, dim=1), whole)
+    # a rank's columns in several segments (the SSD in_proj's z, x, B|C and
+    # dt), one launch a segment, the B|C columns on every rank
+    layout = t_ssm.in_proj_columns(t_configs.get_smoke("mamba2-2.7b"), TP)
+    w = torch.randn((k, layout.total), generator=g)
+    whole = ops.imc_matmul(x, w, cfg, seed=7, x_max=x_max, w_max=w_max)
+    for r in range(TP):
+        idx = layout.index(r)
+        got = ops.imc_matmul(x, w[:, idx], cfg, seed=7, x_max=x_max,
+                             w_max=w_max, cols=(layout.ranks[r],
+                                                layout.total))
+        assert torch.equal(got, whole[:, idx]), r
 
 
 # ---------------------------------------------------------------------------
 # the engines: one group of gloo ranks for every case
 # ---------------------------------------------------------------------------
 
+def _drive(c, params, mesh=None):
+    """Serve a case's requests on one device, or as this rank of ``mesh``:
+    calibrated first where the case says (on the rank's shards under a
+    mesh), with a drift monitor sampling and checking every chunk and
+    ``mlp.wi`` scaled after the first requests, with a transient error
+    injected on one rank before a decode chunk, or with a substrate swap
+    after the first decode chunk.  Returns (what the case's tests read,
+    the engine).  The rank processes run this function's source."""
+    import numpy as np
+
+    from repro_torch.core import parallel
+    from repro_torch.core import substrate as sl
+    from repro_torch.launch import sharding
+    from repro_torch.launch.serve import Engine, Request, _scale_wi, serve
+    from repro_torch.runtime import drift as drift_lib
+    from repro_torch.runtime import fault as fault_lib
+
+    cfg, kw, out = c["cfg"], dict(c["kw"]), {}
+    if c.get("calibrate") is not None:
+        group = (sharding.shard_group(cfg, mesh) if mesh is not None
+                 else None)
+        with parallel.use(group):
+            cfg = sl.calibrate_model(cfg, params, [c["calibrate"]])
+        out["calibration"] = cfg.imc.calibration.to_dict()
+    reports = []
+    if c.get("drift"):
+        mon = drift_lib.DriftMonitor(drift_lib.DriftConfig(
+            sample_every=1, check_every=1))
+        check = mon.check
+
+        def logged(frozen):
+            report = check(frozen)
+            if report is not None:
+                reports.append([mon.chunks_seen,
+                                list(report.drifted_sites)])
+            return report
+
+        mon.check = logged
+        kw["drift_monitor"] = mon
+    if c.get("fault") is not None:
+        fault_rank, fault_chunk = c["fault"]
+        fired = []
+
+        def injector(phase, info):
+            if (phase == "decode" and info == fault_chunk and not fired
+                    and (mesh.rank if mesh is not None else 0)
+                    == fault_rank):
+                fired.append(info)
+                raise fault_lib.TransientDeviceError("injected")
+
+        kw["failure_injector"] = injector
+    eng = Engine(cfg, params, batch_slots=4, cache_len=c["cache_len"],
+                 max_chunk=4, block_size=8, rng=c["rng"], mesh=mesh, **kw)
+    reqs = [Request(rid=i, prompt=np.asarray(p), max_new=c["gen"])
+            for i, p in enumerate(c["prompts"])]
+    if c.get("drift"):
+        serve(eng, reqs[:2])
+        eng.params = _scale_wi(eng.params, 2.5)
+        serve(eng, reqs[2:])
+        done = eng.finished
+    elif c.get("swap_to") is not None:
+        pending = list(reqs)
+        eng.admit_pending(pending)
+        eng.decode_chunk()
+        eng.swap_substrate(c["swap_to"])
+        while pending or eng.active:
+            eng.admit_pending(pending)
+            eng.decode_chunk()
+        done = eng.finished
+    else:
+        done = serve(eng, reqs)
+    out.update(
+        tokens={r.rid: [int(t) for t in r.out] for r in done},
+        errors=[r.error for r in done if r.error is not None],
+        per_device=eng.kv_pool_bytes_per_device(), whole=eng.kv_pool_bytes(),
+        state=eng.state_bytes_per_slot, preempts=eng.preempt_count,
+        kv_shard=eng.kv_shard, reports=reports, swaps=eng.swap_count,
+        retries=eng.retries, decode_failures=eng.decode_failures,
+        pools=[tuple(g["pk"].shape) for g in eng._paged_layers()])
+    return out, eng
+
+
 RANK_SCRIPT = r"""
-import json, sys
+import json, os, sys
 import numpy as np
 import torch
 import torch.distributed as dist
 from repro_torch.convert import params_from_jax
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.launch.serve import Engine, Request, serve
+from repro_torch.launch import sharding
+# _drive
 
 torch.set_num_threads(1)
 rank, port, d = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
@@ -227,21 +356,19 @@ for c in spec["runs"]:
     mesh = mesh_lib.make_serve_mesh(*c["mesh"])
     if mesh.rank < 0:
         continue
-    # the JAX tree (as numpy arrays), converted into this rank's shard
-    params = params_from_jax(spec["params"][c["arch"]], "cpu", c["cfg"],
-                             mesh)
-    eng = Engine(c["cfg"], params, batch_slots=4, cache_len=c["cache_len"],
-                 max_chunk=4, block_size=8, rng=c["rng"], mesh=mesh,
-                 **c["kw"])
-    reqs = [Request(rid=i, prompt=np.asarray(p), max_new=c["gen"])
-            for i, p in enumerate(c["prompts"])]
-    done = serve(eng, reqs)
-    pools = [tuple(g["pk"].shape) for g in eng._paged_layers()]
-    out[c["name"]] = dict(
-        tokens={r.rid: [int(t) for t in r.out] for r in done},
-        errors=[r.error for r in done if r.error is not None],
-        per_device=eng.kv_pool_bytes_per_device(), whole=eng.kv_pool_bytes(),
-        preempts=eng.preempt_count, kv_shard=eng.kv_shard, pools=pools)
+    if c["draw"] is None:
+        # the JAX tree (as numpy arrays), converted into this rank's shard
+        params = params_from_jax(spec["params"][c["arch"]], "cpu", c["cfg"],
+                                 mesh)
+    else:  # the port's own draw, this rank's shard of it
+        params = sharding.init_params(c["cfg"], mesh, seed=c["draw"],
+                                      device="cpu")
+    res, _ = _drive(c, params, mesh)
+    ranks = [None] * mesh.model
+    dist.all_gather_object(ranks, [res["retries"], res["decode_failures"]],
+                           group=mesh.group)
+    res["ranks"] = ranks
+    out[c["name"]] = res
 # the group's sum: every rank's float32 partial, widely spread so that the
 # order of the additions shows, added in rank order on every rank
 from repro_torch.core.parallel import ShardGroup
@@ -267,7 +394,13 @@ if rank == 0:
     with open(f"{d}/out.json", "w") as f:
         json.dump(out, f)
 dist.destroy_process_group()
-"""
+# end here: the interpreter's teardown frees the groups that this
+# script's globals still hold (meshes, engines), and under load a gloo
+# group's thread can then abort the process (std::terminate)
+sys.stdout.flush()
+sys.stderr.flush()
+os._exit(0)
+""".replace("# _drive\n", textwrap.dedent(inspect.getsource(_drive)))
 
 
 def _prompts(vocab, lens, seed=11):
@@ -310,16 +443,27 @@ def _setup():
             imc=j_sub.as_substrate(JIMC(**_imc(mode))).frozen(cal_j))
     cfg_t["bitserial_dynamic"] = cfg_t[MUSIC].replace(
         imc=TIMC(**_imc("imc_bitserial")))
+    # the port's own configurations and draws, held against its one device
+    cfg_t["mamba2-2.7b"] = t_configs.get_smoke("mamba2-2.7b")
+    cfg_t["mamba_bitserial"] = cfg_t["mamba2-2.7b"].replace(
+        imc=TIMC(**_imc("imc_bitserial")))
+    cfg_t["rg6"] = RG6
+    cfg_t["analytic_dynamic"] = cfg_t[MUSIC].replace(
+        imc=TIMC(**_imc("imc_analytic")))
     runs = []
 
     def case(name, key, arch=MUSIC, mesh=(1, TP), rng=None, lens=LENS,
-             gen=GEN, **kw):
+             gen=GEN, draw=None, **kw):
+        extra = {k: kw.pop(k) for k in ("calibrate", "drift", "fault",
+                                        "swap_to") if k in kw}
         runs.append(dict(
             name=name, arch=arch, cfg=cfg_t[key], mesh=mesh, rng=rng,
             gen=gen, kw=kw, prompts=_prompts(cfg_t[key].vocab_size, lens),
-            cache_len=max(lens) + 2 * gen + 8))
+            cache_len=max(lens) + 2 * gen + 8, draw=draw, **extra))
 
-    case("digital", MUSIC)
+    # a transient error on rank 2 alone before decode chunk 0: the ranks
+    # retry together, to the uninjected run's tokens
+    case("digital", MUSIC, fault=(2, 0))
     case("analytic", "imc_analytic")
     case("bitserial", "imc_bitserial", lens=LENS[:3], gen=3)
     case("bitserial_seed", "imc_bitserial", rng=SEED, lens=LENS[:3], gen=3)
@@ -333,6 +477,15 @@ def _setup():
     case("dbrx", "dbrx-132b", arch="dbrx-132b")
     case("dbrx_1x2", "dbrx-132b", arch="dbrx-132b", mesh=(1, 2))
     case("granite", "granite-20b", arch="granite-20b")
+    case("mamba", "mamba2-2.7b", draw=3, lens=[4, 6, 6], gen=4)
+    case("mamba_bitserial", "mamba_bitserial", draw=3, rng=SEED,
+         lens=[4, 6], gen=3)
+    # 6 query heads over 4 ranks; the 20-token prompt wraps the 16-row ring
+    case("rg6", "rg6", draw=3, lens=[4, 20, 6], gen=4)
+    case("calibrated", "analytic_dynamic", calibrate=calib)
+    case("drift", "imc_analytic", drift=True)
+    case("swap", "imc_analytic", lens=LENS[:3], gen=4,
+         swap_to=t_sub.as_substrate(TIMC(**_imc("imc_bitserial"))))
     _CASES.update(runs={c["name"]: c for c in runs}, params_j=params_j,
                   params_t=params_t, cfg_j=cfg_j, spec=dict(
                       runs=runs, params={
@@ -376,7 +529,8 @@ def ranks(tmp_path_factory):
     for name in ("digital", "analytic", "dbrx", "granite"):
         _jax_tokens(name)
     for name in ("bitserial", "bitserial_seed", "bitserial_dynamic",
-                 "analytic_seed", "preempt"):
+                 "analytic_seed", "preempt", "mamba", "mamba_bitserial",
+                 "rg6", "calibrated", "drift", "swap"):
         _port_one(name)
     group = _Ranks(d)
     try:
@@ -415,11 +569,15 @@ def _jax_tokens(name):
 
 
 def _port_one(name):
-    """The port's one-device engine for a case, memoized."""
+    """The port's one-device run of a case (what ``_drive`` returns, and
+    the engine), memoized."""
     if ("port", name) not in _ONE:
         c = _setup()["runs"][name]
-        _ONE[("port", name)] = _serve(t_serve, c["cfg"],
-                                      _setup()["params_t"][c["arch"]], c)
+        params = (_setup()["params_t"][c["arch"]] if c["draw"] is None
+                  else t_init_params(c["cfg"], seed=c["draw"], device="cpu"))
+        out, eng = _drive(c, params)
+        assert out["errors"] == []
+        _ONE[("port", name)] = out, eng
     return _ONE[("port", name)]
 
 
@@ -442,17 +600,17 @@ def test_musicgen_1x4_matches_jax_engine(ranks, name):
 @pytest.mark.parametrize("name", ["bitserial", "bitserial_seed",
                                   "bitserial_dynamic", "analytic_seed"])
 def test_musicgen_1x4_matches_one_device(ranks, name):
-    want, _ = _port_one(name)
+    want = _port_one(name)[0]["tokens"]
     got = _sharded(ranks, name)
     assert {int(k): v for k, v in got["tokens"].items()} == want
 
 
 def test_preemption_schedule_matches_one_device(ranks):
-    want, eng = _port_one("preempt")
+    one, eng = _port_one("preempt")
     got = _sharded(ranks, "preempt")
     assert eng.preempt_count >= 1
     assert got["preempts"] == eng.preempt_count
-    assert {int(k): v for k, v in got["tokens"].items()} == want
+    assert {int(k): v for k, v in got["tokens"].items()} == one["tokens"]
     assert got["per_device"] * TP == got["whole"] == eng.kv_pool_bytes()
 
 
@@ -472,6 +630,79 @@ def test_moe_and_replicated_pools_match_jax_engine(ranks, name, kv_shard):
     assert all(p[-2] == (hkv // tp if kv_shard else hkv)
                for p in got["pools"])
     assert got["per_device"] * (tp if kv_shard else 1) == got["whole"]
+
+
+def _tokens(out):
+    return {int(k): v for k, v in out["tokens"].items()}
+
+
+@pytest.mark.parametrize("name", ["mamba", "mamba_bitserial", "rg6"])
+def test_recurrent_1x4_matches_one_device(ranks, name):
+    """mamba2-2.7b (2 SSD heads a rank, the B|C columns whole on every rank)
+    on digital and on dynamic bit-serial with a noise seed (exact: the
+    banks, noise sites and gain are the single device's, the gated norm
+    runs whole); recurrentgemma-2b with 6 query heads (its attention and
+    ring replicated, its RG-LRU width, d_ff and vocabulary sharded).  Each
+    rank's cache holds its share of the recurrent state."""
+    one, eng = _port_one(name)
+    got = _sharded(ranks, name)
+    assert _tokens(got) == one["tokens"]
+    assert got["whole"] == one["whole"] == eng.kv_pool_bytes()
+    cfg = _setup()["runs"][name]["cfg"]
+    if name == "rg6":
+        assert got["state"] * TP == one["state"]
+    if name.startswith("mamba"):  # (heads/4) N P float32 + conv inputs
+        d_inner, heads = 2 * cfg.d_model, 2 * cfg.d_model // cfg.ssm_head_dim
+        conv = d_inner // TP + 2 * cfg.ssm_groups * cfg.ssm_state
+        assert got["state"] == cfg.n_layers * 4 * (
+            heads // TP * cfg.ssm_state * cfg.ssm_head_dim
+            + (cfg.conv_width - 1) * conv)
+        assert got["per_device"] < one["per_device"]
+
+
+def test_calibration_on_shards_matches_one_device(ranks):
+    """Frozen analytic calibrated on the ranks' shards: every site's
+    ``x_max``, ``w_max`` and ``sigma_yo`` within rel 1e-5 of the one
+    device's calibration (the per-row output moments summed over the
+    group), and the one device's greedy tokens."""
+    one, _ = _port_one("calibrated")
+    got = _sharded(ranks, "calibrated")
+    assert got["calibration"].keys() == one["calibration"].keys()
+    for site, st in one["calibration"].items():
+        for field, v in st.items():
+            assert got["calibration"][site][field] == pytest.approx(
+                v, rel=1e-5), (site, field)
+    assert _tokens(got) == one["tokens"]
+
+
+def test_drift_monitoring_across_ranks_matches_one_device(ranks):
+    """Every chunk sampled and checked, mlp.wi scaled after two requests:
+    the ranks read the group-reduced statistics, so every rank makes the
+    one device's reports (chunk and drifted sites) and swaps as often."""
+    one, _ = _port_one("drift")
+    got = _sharded(ranks, "drift")
+    assert one["swaps"] >= 1 and any(sites for _, sites in one["reports"])
+    assert (got["reports"], got["swaps"]) == (one["reports"], one["swaps"])
+    assert _tokens(got) == one["tokens"]
+
+
+def test_fault_on_one_rank_is_retried_on_every_rank(ranks):
+    """A transient error injected on rank 2 alone, before decode chunk 0 of
+    the digital run: the ranks vote, every rank retries once, and the
+    tokens are the uninjected run's (the JAX engine's)."""
+    got = _sharded(ranks, "digital")
+    assert _setup()["runs"]["digital"]["fault"] == (2, 0)
+    assert _tokens(got) == _jax_tokens("digital")
+    assert got["ranks"] == [[1, 0]] * TP  # (retries, decode failures)
+
+
+def test_substrate_swap_to_bitserial_under_a_mesh(ranks):
+    """Frozen analytic, then frozen bit-serial after the first chunk: the
+    row sites are gathered and placed again by columns, and the tokens are
+    the one device's same swap."""
+    one, _ = _port_one("swap")
+    got = _sharded(ranks, "swap")
+    assert _tokens(got) == one["tokens"]
 
 
 def test_group_sum_adds_in_rank_order(ranks):
@@ -499,12 +730,8 @@ def test_engine_refuses_what_is_not_sharded_yet():
     params = t_init_params(cfg, device="cpu")
     with pytest.raises(ValueError, match="R > 1|data replicas"):
         t_serve.Engine(cfg, params, 2, 32, mesh=t_mesh.Mesh(2, 2))
-    ssm = t_configs.get_smoke("mamba2-2.7b")
-    with pytest.raises(ValueError, match="SSD and RG-LRU"):
-        t_serve.Engine(ssm, params, 2, 32, mesh=t_mesh.Mesh(1, TP))
-    with pytest.raises(ValueError, match="fault retries"):
-        t_serve.Engine(cfg, params, 2, 32, mesh=t_mesh.Mesh(1, TP),
-                       failure_injector=lambda *a: None)
+    with pytest.raises(ValueError, match="not in the mesh"):
+        t_serve.Engine(cfg, params, 2, 32, mesh=t_mesh.Mesh(1, TP, None, -1))
 
 
 CLI = ["--arch", MUSIC, "--smoke", "--batch", "4", "--requests", "5",
@@ -513,10 +740,17 @@ CLI = ["--arch", MUSIC, "--smoke", "--batch", "4", "--requests", "5",
 
 
 def test_cli_mesh_serves_the_one_device_tokens():
-    one = t_serve.main(CLI)
-    four = t_serve.main(CLI + ["--mesh", "1x4"])
+    """Frozen bit-serial with online recalibration: the ranks calibrate on
+    their shards, sample and check every chunk, and give the one device's
+    tokens and monitor counters."""
+    drift = ["--recalibrate", "--drift-sample-every", "1",
+             "--drift-check-every", "1"]
+    one = t_serve.main(CLI + drift)
+    four = t_serve.main(CLI + drift + ["--mesh", "1x4"])
     assert ({r.rid: r.out for r in four["finished"]}
             == {r.rid: r.out for r in one["finished"]})
+    assert four["monitor"].counters() == one["monitor"].counters()
+    assert four["monitor"].checks > 0
     eng = four["engine"]
     assert eng.mesh_shape == "1x4" and eng.kv_shard
     assert eng.kv_pool_bytes_per_device() * TP == eng.kv_pool_bytes()

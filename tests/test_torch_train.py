@@ -57,20 +57,11 @@ from repro_torch.models import attention as t_attn
 from repro_torch.models import init_params as t_init_params
 from repro_torch.models import loss_fn as t_loss_fn
 from repro_torch.optim import adamw as t_adamw
+from torch_threads import two_threads  # noqa: F401  (autouse)
 
 GRAD_ARCHS = ("musicgen-medium", "gemma2-9b", "mamba2-2.7b",
               "recurrentgemma-2b", "granite-moe-1b-a400m", "internvl2-2b")
 _CACHE = {}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    """SMOKE shapes gain nothing from more intra-op threads, and the tier-1
-    run shares the machine's cores among its workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _keyed(tree):

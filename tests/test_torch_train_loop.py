@@ -22,16 +22,7 @@ from repro_torch.runtime import (
     elastic_remesh,
 )
 from repro_torch.runtime.fault import TornState
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    """SMOKE shapes gain nothing from more intra-op threads, and the tier-1
-    run shares the machine's cores among its workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import two_threads  # noqa: F401  (autouse)
 
 
 def _main(*argv, injector=None):

@@ -29,6 +29,7 @@ from torch_zoo import (
     run_engine,
     setup,
 )
+from torch_threads import two_threads  # noqa: F401  (autouse)
 
 ARCH = "internvl2-2b"
 TOL = dict(rtol=1e-5, atol=1e-5)
